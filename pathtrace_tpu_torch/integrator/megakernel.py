@@ -1,0 +1,222 @@
+"""Batch "SIMT" path integrator: all rays advance through bounces in
+lockstep, dead lanes masked (port of pathtrace_tpu/integrator/megakernel.py).
+
+Estimator semantics follow the reference's GetColor_iter
+(CudaUtil.cuh:193-382), quirks included:
+- additive NEE + emissive hit every bounce, no MIS;
+- miss adds weight * (0.1, 0.1, 0.1);
+- weight *= eval / max(pdf, 1e-2);
+- a zero sampled direction kills the path;
+- refraction consumes no depth; RefractCnt cap with the pre-increment
+  check `RefractCnt++ > 8`; the refraction flag is sticky (reassigned
+  only on transparent hits);
+- Russian roulette from bounce 3, survive prob clamp(max(weight), 0.5, 1),
+  skipped on refracted bounces;
+- next origin offset +-EPS along the shading normal;
+- NaN NEE contributions are skipped.
+
+Primal only: the JAX version's detached-sampling switch is a no-op here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+from pathtrace_tpu_torch.models.scene import Scene
+from pathtrace_tpu_torch.ops import bsdf
+from pathtrace_tpu_torch.ops.bsdf import ShadeFrame
+from pathtrace_tpu_torch.ops.intersect import (BIG_T, HitRecord, raycast_brute,
+                                               shadow_brute)
+from pathtrace_tpu_torch.utils import math3, rng
+from pathtrace_tpu_torch.utils.math3 import EPS, dot, normalize
+
+
+def nee_light_pick(scene: Scene, draws: torch.Tensor):
+    """(light_slot, light_tri) for this bounce's NEE draw."""
+    slot = rng.randint_from_uniform(draws[:, rng.COL_LIGHT_PICK], scene.num_lights)
+    return slot, scene.lights[slot.long()]
+
+
+def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
+                     wo: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+    """Next-event estimation (CudaUtil.cuh:234-272): uniform light pick,
+    area sample (SamplePrimitive), shadow ray, and
+    brdfcos * Llight * cosA / (dist^2 * pdfLight), pdfLight = (1/area)/Nl.
+
+    The shadow ray leaves the surface with t in [EPS, dist+1] and reaches
+    the light iff the winning primitive IS the sampled light triangle
+    (megakernel.py:146-169 gives the reasons for both deviations from the
+    reference)."""
+    nl = scene.num_lights
+    slot, light_tri = nee_light_pick(scene, draws)
+    row = scene.light_pack[slot.long()]
+    v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    area = row[:, 9]
+    light_normal = row[:, 10:13]
+    # SamplePrimitive: r1 = sqrt(u), point = (1-r1)V0 + r1(1-r2)V1 + r1 r2 V2
+    r1 = math3.safe_sqrt(draws[:, rng.COL_NEE_R1])[:, None]
+    r2 = draws[:, rng.COL_NEE_R2][:, None]
+    point = (1.0 - r1) * v0 + r1 * (1.0 - r2) * v1 + r1 * r2 * v2
+
+    to_light = point - hit.p
+    dist2 = math3.squared_length(to_light)
+    dist = torch.sqrt(torch.clamp(dist2, min=math3.TINY))
+    sdir = normalize(to_light)
+
+    s_hit, s_prim, s_sph = shadow_brute(scene, hit.p, sdir,
+                                        torch.full_like(dist, EPS), dist + 1.0)
+    reached = s_hit & ~s_sph & (s_prim == light_tri)
+    l_emit = scene.mat.emittance[light_tri.long()]
+    light_color = torch.where(reached[:, None], l_emit, torch.zeros_like(l_emit))
+
+    cos_a = torch.clamp(dot(light_normal, normalize(hit.p - point)), min=0.0)
+    pdf_light = math3.div_scalar(math3.safe_div(torch.ones_like(area), area), nl)
+
+    brdfcos = bsdf.eval_bsdfcos(hit.mat, frame, wo, sdir)
+    contrib = (brdfcos * light_color * cos_a[:, None]
+               / torch.clamp(dist2 * pdf_light, min=math3.TINY)[:, None])
+    finite = torch.isfinite(contrib).all(dim=-1, keepdim=True)
+    return torch.where(finite, contrib, torch.zeros_like(contrib))
+
+
+def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key):
+    """One-bounce transition shared by the lockstep megakernel and the
+    regenerating wavefront. Randomness is keyed by (ray_id, lane_iter), so
+    both integrators realize the identical estimator per path.
+
+    Returns bounce(org, dirn, radiance, weight, depth, refract_cnt,
+    refracted, alive, ray_ids, lane_iter) -> (the same state minus the
+    ids, plus the int64 count of rays traced this iteration)."""
+    if cfg.hemisphere not in ("cosine", "uniform"):
+        raise ValueError(f"unknown hemisphere {cfg.hemisphere!r}")
+    uni = cfg.hemisphere == "uniform"
+
+    def bounce(org, dirn, radiance, weight, depth, refract_cnt, refracted,
+               alive, ray_ids, lane_iter):
+        draws = rng.uniforms(base_key, ray_ids, lane_iter)
+        r = org.shape[0]
+        hit = raycast_brute(scene, org, dirn, torch.zeros((r,), device=org.device),
+                            torch.full((r,), BIG_T, device=org.device))
+        live_hit = alive & hit.hit
+        live_miss = alive & ~hit.hit
+        zero3 = torch.zeros_like(radiance)
+
+        # miss: += weight * 0.1 gray, path ends (CudaUtil.cuh:375-379)
+        miss_rgb = torch.tensor(cfg.miss_radiance, dtype=torch.float32,
+                                device=org.device)
+        radiance = radiance + torch.where(live_miss[:, None], weight * miss_rgb, zero3)
+
+        frame = ShadeFrame(normal=hit.normal, tangent=hit.tangent,
+                           bitangent=hit.bitangent, front_face=hit.front_face)
+        wo = -dirn
+
+        # emissive hit accumulates every bounce (CudaUtil.cuh:220-224)
+        emissive = math3.squared_length(hit.mat.emittance) > EPS
+        radiance = radiance + torch.where((live_hit & emissive)[:, None],
+                                          weight * hit.mat.emittance, zero3)
+
+        # rays traced: one closest hit per alive lane, plus one shadow ray
+        # per live hit when NEE runs
+        rays = alive.sum(dtype=torch.int64)
+        if cfg.nee and scene.num_lights > 0:
+            contrib = nee_contribution(scene, hit, frame, wo, draws)
+            radiance = radiance + torch.where(live_hit[:, None], weight * contrib,
+                                              zero3)
+            rays = rays + live_hit.sum(dtype=torch.int64)
+
+        # BSDF sampling (CudaUtil.cuh:276-338)
+        u_lobe = draws[:, rng.COL_LOBE]
+        u_phi = draws[:, rng.COL_PHI]
+        u_ry = draws[:, rng.COL_RY]
+        wi = bsdf.sample_bsdf(hit.mat, frame, wo, u_lobe, u_phi, u_ry,
+                              uniform_hemi=uni)
+        w1 = bsdf.eval_bsdfcos(hit.mat, frame, wo, wi)
+        w2 = torch.clamp(bsdf.pdf_bsdf(hit.mat, frame, wo, wi, uniform_hemi=uni),
+                         min=cfg.pdf_clamp)
+        current_weight = w1 / w2[:, None]
+
+        dead_sample = math3.squared_length(wi) <= EPS
+        cont = live_hit & ~dead_sample
+        weight = torch.where(cont[:, None], weight * current_weight, weight)
+
+        # sticky refraction flag: reassigned only on transparent hits
+        # (CudaUtil.cuh:307)
+        transparent = hit.mat.opacity < (1.0 - EPS)
+        new_refracted = dot(frame.normal, wo) * dot(frame.normal, wi) <= 0.0
+        refracted = torch.where(cont & transparent, new_refracted, refracted)
+
+        # next ray (CudaUtil.cuh:349-350); the Ray ctor normalizes dir
+        offset = torch.where(refracted, -EPS, EPS).to(torch.float32)
+        org_next = hit.p + frame.normal * offset[:, None]
+        dir_next = normalize(wi)
+        org = torch.where(cont[:, None], org_next, org)
+        dirn = torch.where(cont[:, None], dir_next, dirn)
+
+        # refraction depth exemption + cap: `if (RefractCnt++ > 8) break`
+        refract_now = cont & refracted
+        over_cap = refract_now & (refract_cnt > cfg.refract_cap)
+        refract_cnt = refract_cnt + refract_now.to(torch.int32)
+
+        # Russian roulette (CudaUtil.cuh:361-373) from the loop-entry depth,
+        # skipped by refracting lanes
+        rr_lane = cont & ~refracted & (depth >= cfg.rr_bounce)
+        rr_prob = torch.clamp(math3.max3(weight), cfg.rr_stop_prob, 1.0)
+        rr_survive = draws[:, rng.COL_RR] < rr_prob
+        weight = torch.where((rr_lane & rr_survive)[:, None],
+                             weight / rr_prob[:, None], weight)
+
+        depth_next = depth + (cont & ~refracted).to(torch.int32)
+        alive = (cont & ~over_cap & ~(rr_lane & ~rr_survive)
+                 & (depth_next < cfg.max_bounce))
+        return (org, dirn, radiance, weight, depth_next, refract_cnt, refracted,
+                alive, rays)
+
+    return bounce
+
+
+def make_bounce_step(scene: Scene, cfg: IntegratorConfig, base_key,
+                     ray_ids: torch.Tensor):
+    """Lockstep step: every lane shares the global iteration counter.
+    step(state, it) -> state, with state = (org, dirn, radiance, weight,
+    depth, refract_cnt, refracted, alive, rays)."""
+    bounce = make_bounce_fn(scene, cfg, base_key)
+
+    def step(state, it: int):
+        *lanes, rays = state
+        *lanes, traced = bounce(*lanes, ray_ids, it)
+        return (*lanes, rays + traced)
+
+    return step
+
+
+def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
+                      ray_ids: torch.Tensor, base_key,
+                      cfg: IntegratorConfig = IntegratorConfig()):
+    """Radiance for a batch of camera rays in lockstep, up to cfg.max_iters
+    iterations. Returns ((R, 3) radiance, int rays traced). The loop stops
+    early once every lane is dead: dead lanes change nothing."""
+    r = org.shape[0]
+    dev = org.device
+    step = make_bounce_step(scene, cfg, base_key, ray_ids)
+    state = (
+        org, dirn,
+        torch.zeros((r, 3), device=dev),                   # radiance
+        torch.ones((r, 3), device=dev),                    # weight
+        torch.zeros((r,), dtype=torch.int32, device=dev),  # depth
+        torch.zeros((r,), dtype=torch.int32, device=dev),  # refract count
+        torch.zeros((r,), dtype=torch.bool, device=dev),   # sticky refraction flag
+        torch.ones((r,), dtype=torch.bool, device=dev),    # alive
+        torch.zeros((), dtype=torch.int64, device=dev),    # rays traced
+    )
+    for it in range(cfg.max_iters):
+        if not bool(state[7].any()):
+            break
+        state = step(state, it)
+    return state[2], int(state[8])
+
+
+def trace_paths(scene: Scene, org, dirn, ray_ids, base_key,
+                cfg: IntegratorConfig = IntegratorConfig()) -> torch.Tensor:
+    """Radiance only; see trace_paths_stats."""
+    return trace_paths_stats(scene, org, dirn, ray_ids, base_key, cfg)[0]

@@ -1,0 +1,44 @@
+"""Render driver: a Python loop over samples of the lockstep integrator
+(port of pathtrace_tpu/integrator/render.py).
+
+Ray id convention matches the reference's stream layout
+(pathtracer.cu:71: offset + SampleIDX*W*H): ray_id = sample*W*H + pixel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtrace_tpu_torch.core.camera import Camera
+from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+from pathtrace_tpu_torch.integrator.megakernel import trace_paths
+from pathtrace_tpu_torch.models.scene import Scene
+from pathtrace_tpu_torch.utils import rng
+from pathtrace_tpu_torch.utils.device import resolve_device
+
+
+def render_sample(scene: Scene, camera: Camera, sample_idx: int, base_key,
+                  cfg: IntegratorConfig = IntegratorConfig()) -> torch.Tensor:
+    """Trace one sample per pixel on the scene's device; (W*H, 3) radiance."""
+    px, py = camera.pixel_grid(scene.device)
+    num_pix = px.shape[0]
+    ray_ids = sample_idx * num_pix + torch.arange(num_pix, dtype=torch.int32,
+                                                  device=scene.device)
+    ju = rng.pixel_jitter(base_key, ray_ids)
+    dirs = camera.ray_directions(px, py, ju[:, 0], ju[:, 1])
+    org = torch.as_tensor(camera.pos, device=scene.device).expand_as(dirs)
+    return trace_paths(scene, org, dirs, ray_ids, base_key, cfg)
+
+
+def render(scene: Scene, camera: Camera, spp: int, base_key,
+           cfg: IntegratorConfig = IntegratorConfig(), *,
+           device="cuda") -> torch.Tensor:
+    """Mean radiance over spp samples; (H, W, 3) linear float32 on device
+    (StartRender's sample loop, pathtracer.cu:77-81)."""
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    rng.check_path_ids(camera.width * camera.height, spp)
+    accum = torch.zeros((camera.width * camera.height, 3), device=dev)
+    for s in range(spp):
+        accum = accum + render_sample(scene, camera, s, base_key, cfg)
+    return (accum / spp).reshape(camera.height, camera.width, 3)

@@ -1,0 +1,186 @@
+"""Procedural geometry + canonical scenes (port of
+pathtrace_tpu/models/procedural.py).
+
+The numpy builders are copied, not imported: importing pathtrace_tpu
+imports jax. Conventions: room ~40 units, y up, triangle geometric
+normals (cross(E1, E2)) face into the room; the integrator backface-culls
+(CudaPrimitive.cuh:99), which lets the camera outside see through the
+closed box's front wall.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pathtrace_tpu_torch.core.camera import Camera
+from pathtrace_tpu_torch.models.scene import Material, Scene, Spheres, Triangles
+
+
+def quad(p00, p10, p11, p01, normal) -> np.ndarray:
+    """Two triangles covering the quad p00-p10-p11-p01, wound so
+    cross(E1, E2) points along `normal`."""
+    p00, p10, p11, p01 = [np.asarray(p, np.float32) for p in (p00, p10, p11, p01)]
+    tris = np.stack([
+        np.stack([p00, p10, p11]),
+        np.stack([p00, p11, p01]),
+    ])
+    e1 = tris[:, 1] - tris[:, 0]
+    e2 = tris[:, 2] - tris[:, 0]
+    gn = np.cross(e1, e2)
+    flip = (gn @ np.asarray(normal, np.float32)) < 0
+    tris[flip] = tris[flip][:, ::-1, :]
+    return tris
+
+
+def box(center, half_extents, outward=True) -> np.ndarray:
+    """(12,3,3) triangle positions for an axis-aligned box."""
+    c = np.asarray(center, np.float32)
+    h = np.asarray(half_extents, np.float32)
+    lo, hi = c - h, c + h
+    sgn = 1.0 if outward else -1.0
+    quads = []
+
+    def corners(axis, val, n):
+        a, b = [i for i in range(3) if i != axis]
+        pts = []
+        for (u, v) in [(0, 0), (1, 0), (1, 1), (0, 1)]:
+            p = np.empty(3, np.float32)
+            p[axis] = val
+            p[a] = lo[a] if u == 0 else hi[a]
+            p[b] = lo[b] if v == 0 else hi[b]
+            pts.append(p)
+        quads.append(quad(*pts, normal=sgn * np.asarray(n, np.float32)))
+
+    corners(0, lo[0], (-1, 0, 0))
+    corners(0, hi[0], (1, 0, 0))
+    corners(1, lo[1], (0, -1, 0))
+    corners(1, hi[1], (0, 1, 0))
+    corners(2, lo[2], (0, 0, -1))
+    corners(2, hi[2], (0, 0, 1))
+    return np.concatenate(quads, axis=0)
+
+
+def flat_normals(tri_positions) -> np.ndarray:
+    e1 = tri_positions[:, 1] - tri_positions[:, 0]
+    e2 = tri_positions[:, 2] - tri_positions[:, 0]
+    gn = np.cross(e1, e2)
+    gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)
+    return np.broadcast_to(gn[:, None, :], tri_positions.shape).astype(np.float32).copy()
+
+
+# Room geometry mirroring the reference demo: Cornell OBJ at scale 20 with
+# the camera at (0,20,60) looking down -z (renderer.cpp:19,102-106).
+ROOM_HALF = 20.0
+ROOM_LO = np.array([-ROOM_HALF, 0.0, -ROOM_HALF], np.float32)
+ROOM_HI = np.array([ROOM_HALF, 2 * ROOM_HALF, ROOM_HALF], np.float32)
+
+WHITE = (0.73, 0.73, 0.73)
+RED = (0.65, 0.05, 0.05)
+GREEN = (0.12, 0.45, 0.15)
+LIGHT_EMIT = (15.0, 11.0, 5.0)
+
+
+def cornell_walls(light_half=8.0, light_emit=LIGHT_EMIT):
+    """Closed Cornell room (inward normals) + ceiling light quad.
+
+    Returns (positions (K,3,3), normals, per-triangle Material)."""
+    lo, hi = ROOM_LO, ROOM_HI
+    parts, mats = [], []
+
+    def wall(pts, normal, albedo):
+        q = quad(*pts, normal=normal)
+        parts.append(q)
+        mats.append(Material.make(q.shape[0], albedo=albedo, roughness=1.0))
+
+    # floor (y=lo), normal +y
+    wall([(lo[0], lo[1], lo[2]), (hi[0], lo[1], lo[2]),
+          (hi[0], lo[1], hi[2]), (lo[0], lo[1], hi[2])], (0, 1, 0), WHITE)
+    # ceiling (y=hi), normal -y
+    wall([(lo[0], hi[1], lo[2]), (hi[0], hi[1], lo[2]),
+          (hi[0], hi[1], hi[2]), (lo[0], hi[1], hi[2])], (0, -1, 0), WHITE)
+    # back wall (z=lo), normal +z
+    wall([(lo[0], lo[1], lo[2]), (hi[0], lo[1], lo[2]),
+          (hi[0], hi[1], lo[2]), (lo[0], hi[1], lo[2])], (0, 0, 1), WHITE)
+    # front wall (z=hi), normal -z; the camera outside sees through it
+    wall([(lo[0], lo[1], hi[2]), (hi[0], lo[1], hi[2]),
+          (hi[0], hi[1], hi[2]), (lo[0], hi[1], hi[2])], (0, 0, -1), WHITE)
+    # left wall (x=lo) red, normal +x
+    wall([(lo[0], lo[1], lo[2]), (lo[0], hi[1], lo[2]),
+          (lo[0], hi[1], hi[2]), (lo[0], lo[1], hi[2])], (1, 0, 0), RED)
+    # right wall (x=hi) green, normal -x
+    wall([(hi[0], lo[1], lo[2]), (hi[0], hi[1], lo[2]),
+          (hi[0], hi[1], hi[2]), (hi[0], lo[1], hi[2])], (-1, 0, 0), GREEN)
+    # area light just below the ceiling, normal -y
+    ly = hi[1] - 0.05
+    lh = light_half
+    lq = quad((-lh, ly, -lh), (lh, ly, -lh), (lh, ly, lh), (-lh, ly, lh),
+              normal=(0, -1, 0))
+    parts.append(lq)
+    mats.append(Material.make(lq.shape[0], albedo=WHITE, roughness=1.0,
+                              emittance=light_emit))
+
+    positions = np.concatenate(parts, axis=0)
+    normals = np.concatenate([flat_normals(p) for p in parts], axis=0)
+    return positions, normals, Material.stack(mats)
+
+
+def cornell_box_scene(include_spheres: bool = False,
+                      include_boxes: bool = True,
+                      light_emit=LIGHT_EMIT) -> Scene:
+    """The canonical Cornell box: two diffuse boxes (include_boxes) and/or
+    the reference demo's analytic spheres (include_spheres)."""
+    positions, normals, mat = cornell_walls(light_emit=light_emit)
+    parts_p, parts_n, mats = [positions], [normals], [mat]
+
+    if include_boxes:
+        b1 = box((-7.0, 6.0, -6.0), (5.0, 6.0, 5.0))
+        b2 = box((7.5, 3.5, 5.0), (4.5, 3.5, 4.5))
+        for b in (b1, b2):
+            parts_p.append(b)
+            parts_n.append(flat_normals(b))
+            mats.append(Material.make(b.shape[0], albedo=WHITE, roughness=1.0))
+
+    tris = Triangles.from_vertices(np.concatenate(parts_p, axis=0),
+                                   np.concatenate(parts_n, axis=0))
+    spheres = reference_demo_spheres() if include_spheres else Spheres.empty()
+    return Scene.build(tris, Material.stack(mats), spheres)
+
+
+def reference_demo_spheres() -> Spheres:
+    """The two analytic spheres of renderer.cpp:125-144: r=13 metallic
+    (roughness 0.2) at the origin and r=13 transparent (roughness 0.05,
+    opacity 0) at (0,39,0)."""
+    m1 = Material.make(1, albedo=(1, 1, 1), specular=(0.04, 0.04, 0.04),
+                       metallic=1.0, opacity=1.0, roughness=0.2)
+    m2 = Material.make(1, albedo=(1, 1, 1), specular=(0.04, 0.04, 0.04),
+                       metallic=1.0, opacity=0.0, roughness=0.05)
+    return Spheres(
+        center=torch.tensor([[0.0, 0.0, 0.0], [0.0, 39.0, 0.0]]),
+        radius=torch.tensor([13.0, 13.0]),
+        mat=Material.stack([m1, m2]),
+    )
+
+
+def glass_scene(light_emit=LIGHT_EMIT) -> Scene:
+    """Reflection/refraction scene: metal sphere + glass sphere (analytic)
+    in the Cornell room."""
+    positions, normals, mat = cornell_walls(light_emit=light_emit)
+    tris = Triangles.from_vertices(positions, normals)
+    metal = Material.make(1, albedo=(1.0, 1.0, 1.0), specular=(0.04,) * 3,
+                          metallic=1.0, opacity=1.0, roughness=0.15)
+    glass = Material.make(1, albedo=(1.0, 1.0, 1.0), specular=(0.04,) * 3,
+                          metallic=0.0, opacity=0.0, roughness=0.0)
+    spheres = Spheres(
+        center=torch.tensor([[-8.0, 8.0, -4.0], [8.0, 8.0, 5.0]]),
+        radius=torch.tensor([8.0, 8.0]),
+        mat=Material.stack([metal, glass]),
+    )
+    return Scene.build(tris, mat, spheres)
+
+
+def default_camera(width=512, height=512) -> Camera:
+    """Viewer startup pose: pos (0,20,60), rotation (0,90,0), fovy 45
+    (renderer.cpp:19, camera.cpp:7-14)."""
+    return Camera.from_rotation((0.0, 20.0, 60.0), (0.0, 90.0, 0.0),
+                                fovy_deg=45.0, width=width, height=height)

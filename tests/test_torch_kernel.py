@@ -1,0 +1,88 @@
+"""The CUDA bounce kernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA GPU and nvcc; without a GPU they skip (marker
+`gpu`). On the card, run: python -m pytest tests/test_torch_kernel.py -q.
+Sizes are chip_smoke.py's phase 3:
+- planar Cornell 32x32 @ 8 spp: the JAX package's bars between its engines
+  (tests/test_fused.py): > 99% of pixels within 1e-4, mean 2e-3, ray
+  counts 1e-3. They also hold with NEE off.
+- Cornell with spheres, and the glass scene, 32x32 @ 16 spp: > 99% of
+  pixels within 1e-3, mean 2%, ray counts 1e-5. Curved transport is
+  chaotic, so test_fused.py holds its engines, which round differently, to
+  50% of pixels and 2% of rays; the kernel and its plain version draw the
+  same Philox streams and round alike (-fmad=false, IEEE division in both:
+  math3.div_scalar), so only a rare last-ulp fork may differ, and a wrong
+  lobe that few pixels reach fails. On an H100 both scenes measured
+  bit-equal images and equal ray counts.
+"""
+
+import pytest
+import torch
+
+from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
+from pathtrace_tpu_torch.models import procedural
+from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+from pathtrace_tpu_torch.utils import rng
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+SCENES = {
+    "planar": lambda: procedural.cornell_box_scene(),
+    "spheres": lambda: procedural.cornell_box_scene(include_spheres=True),
+    "glass": lambda: procedural.glass_scene(),  # the pure-refractive lobe
+}
+
+
+@pytest.mark.parametrize("scene_name,nee,spp,tol,pix_bar,mean_bar,rays_bar", [
+    ("planar", True, 8, 1e-4, 0.99, 2e-3, 1e-3),
+    ("planar", False, 8, 1e-4, 0.99, 2e-3, 1e-3),
+    ("spheres", True, 16, 1e-3, 0.99, 0.02, 1e-5),
+    ("glass", True, 16, 1e-3, 0.99, 0.02, 1e-5),
+])
+def test_kernel_matches_plain(cuda, scene_name, nee, spp, tol, pix_bar, mean_bar, rays_bar):
+    scene = SCENES[scene_name]().to(cuda)
+    cam = procedural.default_camera(32, 32)
+    key, cfg = rng.make_key(5), IntegratorConfig(nee=nee)
+    launches = bk.LAUNCHES
+    a, rays_a = bk.render_wavefront_fused(scene, cam, spp, key, cfg, lanes=1024,
+                                          chunk_spp=spp, device=cuda)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == launches + 1
+    b, rays_b = render_wavefront_stats(scene, cam, spp, key, cfg, lanes=1024, device=cuda)
+    a, b = a.cpu(), b.cpu()
+    assert torch.isclose(a, b, rtol=tol, atol=tol).float().mean().item() > pix_bar
+    assert abs(a.mean().item() - b.mean().item()) / b.mean().item() < mean_bar
+    assert rays_a == pytest.approx(rays_b, rel=rays_bar)
+
+
+@pytest.mark.parametrize("lanes", [256, 1024, 4096])
+def test_kernel_lane_layouts(cuda, lanes):
+    """Several pixels per lane, one, and several lanes per pixel."""
+    scene = procedural.cornell_box_scene().to(cuda)
+    cam = procedural.default_camera(32, 32)
+    key = rng.make_key(2)
+    a, ra = bk.render_wavefront_fused(scene, cam, 4, key, lanes=lanes, device=cuda)
+    b, rb = render_wavefront_stats(scene, cam, 4, key, lanes=lanes, device=cuda)
+    assert torch.isclose(a, b, rtol=1e-4, atol=1e-4).float().mean().item() > 0.99
+    assert ra == pytest.approx(rb, rel=1e-3)
+
+
+def test_kernel_chunked_equals_single(cuda):
+    scene = procedural.cornell_box_scene(include_spheres=True).to(cuda)
+    cam = procedural.default_camera(8, 8)
+    key = rng.make_key(9)
+    launches = bk.LAUNCHES
+    a, ra = bk.render_wavefront_fused(scene, cam, 8, key, lanes=64, chunk_spp=8, device=cuda)
+    b, rb = bk.render_wavefront_fused(scene, cam, 8, key, lanes=64, chunk_spp=2, device=cuda)
+    assert bk.LAUNCHES == launches + 1 + 4
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert ra == rb
