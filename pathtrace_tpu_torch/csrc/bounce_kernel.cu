@@ -43,6 +43,7 @@
 #include <stdint.h>
 
 #include "bsdf.cuh"
+#include "mt.cuh"
 
 namespace pt {
 
@@ -105,22 +106,12 @@ __device__ __forceinline__ TriHit closest_tri(const float* geo, int num_tris, V3
   TriHit best{INFINITY, 0.0f, 0.0f, 0, false};
   for (int j = 0; j < num_tris; ++j) {
     const float* g = geo + j * GEO_STRIDE;
-    V3 v0 = ld3(g), e1 = ld3(g + 3), e2 = ld3(g + 6);
-    V3 tvec = org - v0;
-    V3 p = cross(dir, e2);
-    V3 q = cross(tvec, e1);
-    float det = dot(p, e1);
-    float inv_det = fabsf(det) > TINY ? 1.0f / det : 0.0f;
-    float t = dot(q, e2) * inv_det;
-    float u = dot(p, tvec);
-    float v = dot(q, dir);
-    bool valid = det >= EPS && t >= tmin && t <= tmax && u >= 0.0f && u <= det && v >= 0.0f &&
-                 u + v <= det;
-    if (valid && t < best.t) {
-      best.t = t;
+    MtHit h = mt_intersect(org, dir, ld3(g), ld3(g + 3), ld3(g + 6), tmin, tmax);
+    if (h.valid && h.t < best.t) {
+      best.t = h.t;
       best.idx = j;
-      best.u = u * inv_det;
-      best.v = v * inv_det;
+      best.u = h.u * h.inv_det;
+      best.v = h.v * h.inv_det;
       best.hit = true;
     }
   }

@@ -20,6 +20,8 @@ Primal only: the JAX version's detached-sampling switch is a no-op here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
@@ -28,8 +30,31 @@ from pathtrace_tpu_torch.ops import bsdf
 from pathtrace_tpu_torch.ops.bsdf import ShadeFrame
 from pathtrace_tpu_torch.ops.intersect import (BIG_T, HitRecord, raycast_brute,
                                                shadow_brute)
+from pathtrace_tpu_torch.ops.kd_raycast import kd_closest, raycast_kd, shadow_kd
 from pathtrace_tpu_torch.utils import math3, rng
 from pathtrace_tpu_torch.utils.math3 import EPS, dot, normalize
+
+
+def default_raycast(scene: Scene, search=kd_closest):
+    """Closest-hit backend for the scene (megakernel.py:51-73):
+    (scene, org, dirn, t_min, t_max) -> HitRecord. A scene with KD cells
+    goes through them (raycast_kd: the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors; `search` replaces the cell search, as
+    chip_smoke.py does to run the plain version on the card); any other
+    scene goes to brute. The JAX package takes BVH or MT-matmul
+    intersection for small scenes; the port has neither, and brute gives
+    the same winners."""
+    if scene.clusters is not None:
+        return functools.partial(raycast_kd, search=search)
+    return raycast_brute
+
+
+def default_shadow_raycast(scene: Scene, search=kd_closest):
+    """Shadow-ray backend (megakernel.py:76-100): (scene, org, dirn,
+    t_min, t_max) -> (hit, prim_id, is_sphere), routed as default_raycast."""
+    if scene.clusters is not None:
+        return functools.partial(shadow_kd, search=search)
+    return shadow_brute
 
 
 def nee_light_pick(scene: Scene, draws: torch.Tensor):
@@ -39,7 +64,7 @@ def nee_light_pick(scene: Scene, draws: torch.Tensor):
 
 
 def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
-                     wo: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+                     wo: torch.Tensor, draws: torch.Tensor, shadow_fn) -> torch.Tensor:
     """Next-event estimation (CudaUtil.cuh:234-272): uniform light pick,
     area sample (SamplePrimitive), shadow ray, and
     brdfcos * Llight * cosA / (dist^2 * pdfLight), pdfLight = (1/area)/Nl.
@@ -47,7 +72,7 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     The shadow ray leaves the surface with t in [EPS, dist+1] and reaches
     the light iff the winning primitive IS the sampled light triangle
     (megakernel.py:146-169 gives the reasons for both deviations from the
-    reference)."""
+    reference). shadow_fn traces it (default_shadow_raycast(scene))."""
     nl = scene.num_lights
     slot, light_tri = nee_light_pick(scene, draws)
     row = scene.light_pack[slot.long()]
@@ -64,8 +89,8 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     dist = torch.sqrt(torch.clamp(dist2, min=math3.TINY))
     sdir = normalize(to_light)
 
-    s_hit, s_prim, s_sph = shadow_brute(scene, hit.p, sdir,
-                                        torch.full_like(dist, EPS), dist + 1.0)
+    s_hit, s_prim, s_sph = shadow_fn(scene, hit.p, sdir,
+                                     torch.full_like(dist, EPS), dist + 1.0)
     reached = s_hit & ~s_sph & (s_prim == light_tri)
     l_emit = scene.mat.emittance[light_tri.long()]
     light_color = torch.where(reached[:, None], l_emit, torch.zeros_like(l_emit))
@@ -80,10 +105,11 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     return torch.where(finite, contrib, torch.zeros_like(contrib))
 
 
-def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key):
+def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_closest):
     """One-bounce transition shared by the lockstep megakernel and the
     regenerating wavefront. Randomness is keyed by (ray_id, lane_iter), so
-    both integrators realize the identical estimator per path.
+    both integrators realize the identical estimator per path. Rays go
+    through default_raycast / default_shadow_raycast (`search` as there).
 
     Returns bounce(org, dirn, radiance, weight, depth, refract_cnt,
     refracted, alive, ray_ids, lane_iter) -> (the same state minus the
@@ -91,13 +117,15 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key):
     if cfg.hemisphere not in ("cosine", "uniform"):
         raise ValueError(f"unknown hemisphere {cfg.hemisphere!r}")
     uni = cfg.hemisphere == "uniform"
+    raycast = default_raycast(scene, search)
+    shadow = default_shadow_raycast(scene, search)
 
     def bounce(org, dirn, radiance, weight, depth, refract_cnt, refracted,
                alive, ray_ids, lane_iter):
         draws = rng.uniforms(base_key, ray_ids, lane_iter)
         r = org.shape[0]
-        hit = raycast_brute(scene, org, dirn, torch.zeros((r,), device=org.device),
-                            torch.full((r,), BIG_T, device=org.device))
+        hit = raycast(scene, org, dirn, torch.zeros((r,), device=org.device),
+                      torch.full((r,), BIG_T, device=org.device))
         live_hit = alive & hit.hit
         live_miss = alive & ~hit.hit
         zero3 = torch.zeros_like(radiance)
@@ -120,7 +148,7 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key):
         # per live hit when NEE runs
         rays = alive.sum(dtype=torch.int64)
         if cfg.nee and scene.num_lights > 0:
-            contrib = nee_contribution(scene, hit, frame, wo, draws)
+            contrib = nee_contribution(scene, hit, frame, wo, draws, shadow)
             radiance = radiance + torch.where(live_hit[:, None], weight * contrib,
                                               zero3)
             rays = rays + live_hit.sum(dtype=torch.int64)

@@ -1,17 +1,24 @@
-"""Wavefront path tracing with path regeneration (port of the static
-strided assignment of pathtrace_tpu/integrator/wavefront.py:118-229).
+"""Wavefront path tracing with path regeneration (port of
+pathtrace_tpu/integrator/wavefront.py:74-242).
 
 One persistent lane array: every iteration each lane continues its path
-or, when the path ended, commits its radiance to the film and starts the
-next camera path of its stride. Lane i traces path ids base + i,
-base + i + lanes, ... below base + total, and its randomness is keyed by
-(path id, path-local iteration), so every path sees the same stream as in
-the lockstep megakernel.
+or, when the path ended, commits its radiance to the film and starts a
+new camera path. Randomness is keyed by (path id, path-local iteration),
+so every path sees the same stream as in the lockstep megakernel, whichever
+lane traces it. Two assignments of paths to lanes, as in JAX:
 
-This is the plain version of the CUDA bounce kernel
-(ops/cuda/bounce_kernel.py): the kernel runs the same per-lane loop, and
-the film layout (K, lanes, 3) with K = max(1, num_pix // lanes) is the
-same, so both sum each film slot in path order.
+- static strided, whenever lanes % num_pix == 0 or num_pix % lanes == 0:
+  lane i traces path ids base + i, base + i + lanes, ... and commits to a
+  per-lane film (K, lanes, 3), K = max(1, num_pix // lanes). This is the
+  plain version of the CUDA bounce kernel (ops/cuda/bounce_kernel.py),
+  which runs the same per-lane loop and sums each slot in path order;
+- pool, for any other lane count: dead lanes take the next unstarted path
+  ids from a shared counter (cumsum over the lanes that died), each lane
+  keeps its pixel, and the per-pixel film (num_pix, 3) is committed with
+  index_add_ (on CUDA its atomics add in no fixed order).
+
+Closest-hit and shadow rays go through megakernel.default_raycast, so a
+scene with KD cells takes the mesh path in both assignments.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from pathtrace_tpu_torch.core.camera import Camera
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.megakernel import make_bounce_fn
 from pathtrace_tpu_torch.models.scene import Scene
+from pathtrace_tpu_torch.ops.kd_raycast import kd_closest
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
 
@@ -47,23 +55,29 @@ def _regen_rays(camera: Camera, path_idx: torch.Tensor, base_key, num_pix: int):
 
 
 def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
-                   cfg: IntegratorConfig, lanes: int, sample_offset: int = 0):
+                   cfg: IntegratorConfig, lanes: int, sample_offset: int = 0, *,
+                   search=kd_closest):
     """((H, W, 3) mean image, int rays traced) over path ids
     [sample_offset*num_pix, (sample_offset+spp)*num_pix) on the scene's
-    device."""
+    device; `search` as in megakernel.default_raycast."""
     num_pix = camera.width * camera.height
-    k_pix = check_lanes(lanes, num_pix)
+    if lanes <= 0:
+        raise ValueError(f"lanes={lanes} must be positive")
+    static = lanes % num_pix == 0 or num_pix % lanes == 0
+    k_pix = max(1, num_pix // lanes)
     rng.check_path_ids(num_pix, spp, sample_offset)
     dev = scene.device
     base_path = sample_offset * num_pix
     total_paths = num_pix * spp
-    bounce = make_bounce_fn(scene, cfg, base_key)
+    bounce = make_bounce_fn(scene, cfg, base_key, search=search)
 
-    film = torch.zeros((k_pix, lanes, 3), device=dev)
+    film = torch.zeros((k_pix, lanes, 3) if static else (num_pix, 3), device=dev)
     lane = torch.arange(lanes, dtype=torch.int64, device=dev)
     ray_ids = base_path + lane  # int64: ray_id + lanes may pass 2**31 - 1
     org, dirn = _regen_rays(camera, ray_ids, base_key, num_pix)
     alive = lane < total_paths  # lanes may exceed tiny pools
+    pixel = ray_ids % num_pix  # pool: each lane's film pixel
+    next_path = torch.full((), lanes, dtype=torch.int64, device=dev)  # pool counter
     radiance = torch.zeros((lanes, 3), device=dev)
     weight = torch.ones((lanes, 3), device=dev)
     depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
@@ -80,20 +94,30 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                                       lane_iter)
         rays = rays + traced
 
-        # commit: lane i's k-th path lands in film[k % K, i], which is pixel
-        # (i + (k % K) * lanes) % num_pix
         died = alive & ~alive_next
         contrib = torch.where(died[:, None], radiance, zero3)
-        if k_pix == 1:
-            film[0] += contrib
+        if not static:
+            film.index_add_(0, pixel, contrib)
+            # pool regeneration: the dead lanes take the next unstarted ids
+            # in lane order
+            died_i = died.to(torch.int64)
+            new_local = next_path + torch.cumsum(died_i, 0) - 1
+            regen = died & (new_local < total_paths)
+            new_safe = torch.where(regen, base_path + new_local, torch.zeros_like(new_local))
+            pixel = torch.where(regen, new_safe % num_pix, pixel)
+            next_path = next_path + died_i.sum()
         else:
-            kmod = ((ray_ids - base_path) // lanes) % k_pix
-            film.view(-1, 3).index_add_(0, kmod * lanes + lane, contrib)
-
-        # strided regeneration: lane i's next path id is ray_id + lanes
-        new_idx = ray_ids + lanes
-        regen = died & (new_idx - base_path < total_paths)
-        new_safe = torch.where(regen, new_idx, torch.zeros_like(new_idx))
+            # commit: lane i's k-th path lands in film[k % K, i], which is
+            # pixel (i + (k % K) * lanes) % num_pix
+            if k_pix == 1:
+                film[0] += contrib
+            else:
+                kmod = ((ray_ids - base_path) // lanes) % k_pix
+                film.view(-1, 3).index_add_(0, kmod * lanes + lane, contrib)
+            # strided regeneration: lane i's next path id is ray_id + lanes
+            new_idx = ray_ids + lanes
+            regen = died & (new_idx - base_path < total_paths)
+            new_safe = torch.where(regen, new_idx, torch.zeros_like(new_idx))
         r_org, r_dir = _regen_rays(camera, new_safe, base_key, num_pix)
         sel = regen[:, None]
         org = torch.where(sel, r_org, org)
@@ -107,8 +131,8 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
         ray_ids = torch.where(regen, new_safe, ray_ids)
         lane_iter = torch.where(regen, 0, lane_iter + 1)
 
-    # film[k, i] belongs to pixel (i + k*lanes) % num_pix
-    if num_pix >= lanes:
+    # static: film[k, i] belongs to pixel (i + k*lanes) % num_pix
+    if not static or num_pix >= lanes:
         film_pix = film.reshape(num_pix, 3)
     else:
         film_pix = film.reshape(lanes // num_pix, num_pix, 3).sum(dim=0)
@@ -119,12 +143,12 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
 def render_wavefront_stats(scene: Scene, camera: Camera, spp: int, base_key,
                            cfg: IntegratorConfig = IntegratorConfig(),
                            lanes: int = 65536, sample_offset: int = 0, *,
-                           device="cuda"):
+                           device="cuda", search=kd_closest):
     """((H, W, 3) mean radiance, rays traced); `lanes` is the persistent
-    wavefront width."""
+    wavefront width; `search` as in megakernel.default_raycast."""
     dev = resolve_device(device)
     return _run_wavefront(scene.to(dev), camera, spp, base_key, cfg, lanes,
-                          sample_offset)
+                          sample_offset, search=search)
 
 
 def render_wavefront(scene: Scene, camera: Camera, spp: int, base_key,

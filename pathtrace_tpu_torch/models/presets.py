@@ -1,13 +1,13 @@
 """Shipped scene/config presets (port of pathtrace_tpu/models/presets.py).
 
-The small-scene presets are carried. `mesh512` and `multihost1024` need
-the OBJ loader and the mesh acceleration, which the port does not have
-yet (ROADMAP A7): building them raises NotImplementedError.
-
-`use_bvh` has no effect yet: every scene takes the brute raycast. The JAX
-build reorders triangles into BVH leaf order (presets.py:96-103), so exact
-ties between triangles may break differently; images agree to golden
-tolerance.
+build_preset_scene applies the JAX package's size rule
+(presets.py:94-106): a `use_bvh` preset with more than 4096 triangles gets
+KD cells (Scene.with_kd_binned), the mesh path; `mesh512` (the blob82k
+OBJ asset) and `multihost1024` (an 82k-triangle icosphere, built for one
+device: sharding is ROADMAP A11) take it. Smaller scenes stay on the
+brute raycast, where JAX builds a BVH and MT-matmul coefficients and
+reorders triangles into BVH leaf order: a documented deviation; both
+searches find the same closest hits, and the images agree at golden bars.
 """
 
 from __future__ import annotations
@@ -18,13 +18,8 @@ from typing import Callable
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.models import procedural
 
-
-def _not_ported(name: str) -> Callable:
-    def build():
-        raise NotImplementedError(
-            f"preset {name!r} needs OBJ/mesh ingestion and its acceleration, "
-            "not yet ported (ROADMAP A7)")
-    return build
+# Above this many triangles a preset scene gets KD cells (JAX presets.py:100).
+KD_MIN_TRIS = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +59,7 @@ PRESETS = {
         name="mesh512",
         description="82k-tri OBJ asset (assets/blob82k.obj) via the "
                     "OBJ/MTL loader + SAH BVH, 512x512 @ 256spp",
-        build_scene=_not_ported("mesh512"),
+        build_scene=lambda: procedural.blob_mesh_scene(),
         width=512, height=512, spp=256,
     ),
     "glass512": Preset(
@@ -78,7 +73,7 @@ PRESETS = {
         name="multihost1024",
         description="Bunny-in-box 1024x1024 @ 2048spp, tiles sharded over "
                     "hosts with grad allreduce",
-        build_scene=_not_ported("multihost1024"),
+        build_scene=lambda: procedural.sphere_mesh_scene(subdivisions=6),
         width=1024, height=1024, spp=2048,
     ),
     "reference_demo": Preset(
@@ -99,5 +94,9 @@ def get_preset(name: str) -> Preset:
 
 
 def build_preset_scene(preset: Preset):
-    """The preset's scene, on the host (move it with Scene.to)."""
-    return preset.build_scene()
+    """The preset's scene on the host (move it with Scene.to), with KD cells
+    when it has more than KD_MIN_TRIS triangles."""
+    scene = preset.build_scene()
+    if preset.use_bvh and scene.num_tris > KD_MIN_TRIS:
+        scene = scene.with_kd_binned()
+    return scene

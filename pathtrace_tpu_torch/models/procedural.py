@@ -10,6 +10,8 @@ closed box's front wall.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -59,6 +61,52 @@ def box(center, half_extents, outward=True) -> np.ndarray:
     corners(2, lo[2], (0, 0, -1))
     corners(2, hi[2], (0, 0, 1))
     return np.concatenate(quads, axis=0)
+
+
+def icosphere(radius=1.0, center=(0, 0, 0), subdivisions=3) -> np.ndarray:
+    """(T,3,3) triangle positions for a geodesic sphere: 20 * 4**subdivisions
+    triangles (6 -> 81,920)."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=-1, keepdims=True)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+    for _ in range(subdivisions):
+        cache: dict = {}
+        verts_list = list(verts)
+
+        def midpoint(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in cache:
+                m = verts_list[i] + verts_list[j]
+                m /= np.linalg.norm(m)
+                cache[key] = len(verts_list)
+                verts_list.append(m)
+            return cache[key]
+
+        new_faces = []
+        for (a, b, c) in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, np.int64)
+    pos = verts[faces] * radius + np.asarray(center, np.float64)
+    return pos.astype(np.float32)
+
+
+def smooth_sphere_normals(tri_positions, center) -> np.ndarray:
+    """Per-vertex normals pointing radially out of `center`."""
+    d = tri_positions - np.asarray(center, np.float32)
+    return (d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+            ).astype(np.float32)
 
 
 def flat_normals(tri_positions) -> np.ndarray:
@@ -160,6 +208,38 @@ def reference_demo_spheres() -> Spheres:
         radius=torch.tensor([13.0, 13.0]),
         mat=Material.stack([m1, m2]),
     )
+
+
+def sphere_mesh_scene(subdivisions=4, sphere_material=None,
+                      light_emit=LIGHT_EMIT) -> Scene:
+    """Cornell room containing one dense triangulated sphere
+    (subdivisions=6: ~82k triangles, the multihost1024 preset)."""
+    positions, normals, mat = cornell_walls(light_emit=light_emit)
+    sph = icosphere(radius=9.0, center=(0.0, 9.0, 0.0), subdivisions=subdivisions)
+    sph_n = smooth_sphere_normals(sph, (0.0, 9.0, 0.0))
+    if sphere_material is None:
+        sphere_material = Material.make(
+            sph.shape[0], albedo=(0.9, 0.75, 0.4), roughness=0.4,
+            specular=(0.04, 0.04, 0.04), metallic=0.6)
+    positions = np.concatenate([positions, sph], axis=0)
+    normals = np.concatenate([normals, sph_n], axis=0)
+    mat = Material.stack([mat, sphere_material])
+    return Scene.build(Triangles.from_vertices(positions, normals), mat)
+
+
+ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "assets")
+
+
+def blob_mesh_scene(light_emit=LIGHT_EMIT) -> Scene:
+    """Cornell room + the repo's 82k-triangle OBJ asset (assets/blob82k.obj)
+    through the OBJ/MTL loader, as the JAX package builds it (no BVH)."""
+    from pathtrace_tpu_torch.models.obj import load_obj_scene
+
+    room = cornell_walls(light_emit=light_emit)
+    return load_obj_scene(os.path.join(ASSET_DIR, "blob82k.obj"),
+                          translation=(0.0, 10.0, 0.0), scale=6.0, extra=room,
+                          build_bvh=False)
 
 
 def glass_scene(light_emit=LIGHT_EMIT) -> Scene:

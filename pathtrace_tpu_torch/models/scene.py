@@ -14,7 +14,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pathtrace_tpu_torch.accel.binned import ClusterArrays
 from pathtrace_tpu_torch.utils import math3
+
+# The KD cell leaves a scene carries across (Scene.from_numpy).
+CLUSTER_FIELDS = ("bmin", "bmax", "prim_start", "prim_count", "dup_map")
 
 _MAT_FIELDS = ("emittance", "albedo", "specular", "opacity", "roughness",
                "metallic")
@@ -176,7 +180,10 @@ class Scene:
 
     `lights` indexes emissive triangles found by scanning emittance
     (pathtracer.cu:164-174). `light_pack` is the (L, 13) per-light row
-    [v0 v1 v2 area geometric_normal] that NEE samples from.
+    [v0 v1 v2 area geometric_normal] that NEE samples from. `clusters`
+    (optional) holds the KD cells of the mesh raycast
+    (Scene.with_kd_binned); the engines then route every closest-hit and
+    shadow ray through them (integrator/megakernel.default_raycast).
     """
 
     tris: Triangles
@@ -185,6 +192,7 @@ class Scene:
     lights: torch.Tensor  # (L,) int32 indices into tris
     num_lights: int
     light_pack: torch.Tensor  # (L, 13) float32
+    clusters: Optional[ClusterArrays] = None
 
     @property
     def num_tris(self) -> int:
@@ -200,6 +208,22 @@ class Scene:
 
     def to(self, device) -> "Scene":
         return _to(self, torch.device(device))
+
+    def positions(self) -> np.ndarray:
+        """(T, 3, 3) float32 triangle vertices on the host."""
+        tr = self.tris
+        return np.stack([tr.v0.cpu().numpy(), tr.v1.cpu().numpy(),
+                         tr.v2.cpu().numpy()], axis=1)
+
+    def with_kd_binned(self, max_tris: int = 1024) -> "Scene":
+        """The scene with KD cells over its triangles (accel/kdgrid.py,
+        hybrid split rule as the JAX package's scene.py:335-359). The JAX
+        version's MT coefficients and packed shading rows are TPU
+        formulations and are not built."""
+        from pathtrace_tpu_torch.accel.kdgrid import build_kd_clusters
+
+        clusters = build_kd_clusters(self.positions(), max_tris=max_tris, rule="hybrid")
+        return dataclasses.replace(self, clusters=_to(clusters, self.device))
 
     @staticmethod
     def build(tris: Triangles, mat: Material,
@@ -227,8 +251,10 @@ class Scene:
     def from_numpy(d: dict) -> "Scene":
         """Scene from a flat dict of numpy arrays, keyed "tris.<field>",
         "mat.<field>", "spheres.center", "spheres.radius",
-        "spheres.mat.<field>", "lights", "light_pack" and "num_lights"
-        (how the tests carry a JAX scene across)."""
+        "spheres.mat.<field>", "lights", "light_pack" and "num_lights",
+        plus, for a KD scene, "clusters.<bmin|bmax|prim_start|prim_count|
+        dup_map>" (how the tests carry a JAX scene across; the member
+        table is gathered from the triangles)."""
         mat = lambda prefix: Material(
             **{f: _t(d[f"{prefix}.{f}"]) for f in _MAT_FIELDS})
         tris = Triangles(**{f.name: _t(d[f"tris.{f.name}"])
@@ -236,7 +262,12 @@ class Scene:
         spheres = Spheres(center=_t(d["spheres.center"]),
                           radius=_t(d["spheres.radius"]),
                           mat=mat("spheres.mat"))
-        return Scene(tris=tris, mat=mat("mat"), spheres=spheres,
-                     lights=torch.from_numpy(np.asarray(d["lights"], np.int32)),
-                     num_lights=int(d["num_lights"]),
-                     light_pack=_t(d["light_pack"]))
+        scene = Scene(tris=tris, mat=mat("mat"), spheres=spheres,
+                      lights=torch.from_numpy(np.asarray(d["lights"], np.int32)),
+                      num_lights=int(d["num_lights"]),
+                      light_pack=_t(d["light_pack"]))
+        if "clusters.bmin" not in d:
+            return scene
+        cells = {f: d[f"clusters.{f}"] for f in CLUSTER_FIELDS}
+        return dataclasses.replace(
+            scene, clusters=ClusterArrays.from_cells(scene.positions(), **cells))

@@ -1,9 +1,11 @@
 """Build the CUDA kernels of this package with nvcc, at first use.
 
 The sources are the package's csrc/*.cu and csrc/*.cuh and nothing else.
-The shared library (a plain C interface, loaded with ctypes) goes to
-pathtrace_tpu_torch/_build/, named by a hash of the sources and the
-command, so an edit rebuilds and an unchanged tree reuses the library.
+Each .cu is compiled to an object by its own nvcc process, all started
+together, and one more nvcc links them into a shared library (a plain C
+interface, loaded with ctypes) under pathtrace_tpu_torch/_build/, named by
+a hash of the sources and the flags, so an edit rebuilds and an unchanged
+tree reuses the library.
 Importing this module runs nothing: `load_library()` builds on its first
 call. nvcc comes from $CUDA_HOME/bin, else PATH, else /usr/local/cuda/bin.
 """
@@ -26,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # kernel rounds like the eager version; whether contraction may come back
 # is a performance question for later.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -48,8 +50,13 @@ def find_nvcc() -> str:
                        "of pathtrace_tpu_torch are built at first use")
 
 
-def nvcc_command(nvcc: str, out_path: str) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out_path, *sources()]
+def compile_command(nvcc: str, source: str, obj_path: str) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", obj_path, source]
+
+
+def link_command(nvcc: str, objects: list[str], out_path: str) -> list[str]:
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", out_path,
+            *objects]
 
 
 def _digest() -> str:
@@ -66,27 +73,36 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libpathtrace_{_digest()}.so")
 
 
+def _run_all(commands: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands concurrently; (return code, stdout + stderr) each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    return [(p.returncode, out) for p, out in ((p, p.communicate()[0]) for p in procs)]
+
+
 def build() -> str:
     """Compile the library unless this source hash is already built; the
-    compiler's output (-Xptxas -v: registers, shared memory, spills) is
+    compilers' output (-Xptxas -v: registers, shared memory, spills) is
     kept beside it as <library>.log. Returns the library path."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(find_nvcc(), tmp), capture_output=True,
-                              text=True, check=False)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sources()
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in srcs]
+        results = _run_all([compile_command(nvcc, s, o) for s, o in zip(srcs, objs)])
+        lib_tmp = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link_command(nvcc, objs, lib_tmp)])
+        names = [os.path.basename(s) for s in srcs] + ["link"]
+        log = "".join(f"== {name}\n{out}" for name, (_, out) in zip(names, results))
         with open(path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            f.write(log)
+        if any(rc != 0 for rc, _ in results):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(lib_tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 
 

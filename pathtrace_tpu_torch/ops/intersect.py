@@ -59,12 +59,13 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
-def intersect_tris_all(tris, org, dirn, t_min, t_max):
-    """All-pairs Möller-Trumbore: (t (R,T), valid (R,T), u, v) with u, v the
-    normalized barycentrics (post inv_det)."""
-    v0 = tris.v0[None]
-    e1 = tris.e1[None]
-    e2 = tris.e2[None]
+def intersect_tris_all(v0, e1, e2, org, dirn, t_min, t_max):
+    """All-pairs Möller-Trumbore of R rays against T triangles given as
+    (T, 3) v0, e1 = v1 - v0, e2 = v2 - v0: (t (R,T), valid (R,T), u, v)
+    with u, v the normalized barycentrics (post inv_det)."""
+    v0 = v0[None]
+    e1 = e1[None]
+    e2 = e2[None]
     d = dirn[:, None, :]
     tvec = org[:, None, :] - v0
     p = math3.cross(d, e2)
@@ -214,7 +215,8 @@ def finalize_hit(scene: Scene, org, dirn, t_min, t_max,
 
 
 def _closest_tri(scene: Scene, org, dirn, t_min, t_max):
-    t, valid, u, v = intersect_tris_all(scene.tris, org, dirn, t_min, t_max)
+    tr = scene.tris
+    t, valid, u, v = intersect_tris_all(tr.v0, tr.e1, tr.e2, org, dirn, t_min, t_max)
     best_t, tri_idx, tri_hit = closest_masked(
         torch.where(valid, t, torch.full_like(t, _INF)))
     return best_t, tri_idx, tri_hit, u, v

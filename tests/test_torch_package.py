@@ -3,8 +3,8 @@
 - No module of pathtrace_tpu_torch imports jax or the JAX package.
 - The package imports without nvcc, triton or a GPU, and building the
   CUDA library never happens at import.
-- The nvcc command targets sm_90a, keeps IEEE rounding (-fmad=false, no
-  fast math) and compiles only the package's own csrc sources.
+- The nvcc commands target sm_90a, keep IEEE rounding (-fmad=false, no
+  fast math) and compile only the package's own csrc sources.
 - Without a GPU, asking for CUDA fails instead of rendering on the CPU.
 - The fused engine rejects uniform hemisphere sampling.
 """
@@ -72,13 +72,18 @@ print(len(names))
 
 
 def test_nvcc_command_flags():
-    cmd = build.nvcc_command("nvcc", "/x/lib.so")
-    line = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in line
-    assert "-fmad=false" in cmd and "-O3" in cmd and "-shared" in cmd
-    assert "fast_math" not in line and "fast-math" not in line
-    srcs = [c for c in cmd if c.endswith(".cu")]
-    assert srcs and all(pathlib.Path(s).parent == PKG / "csrc" for s in srcs)
+    """One compile command per csrc/*.cu (run concurrently), one link."""
+    srcs = build.sources()
+    assert {pathlib.Path(s).name for s in srcs} == {"bounce_kernel.cu", "kd_raycast.cu"}
+    assert all(pathlib.Path(s).parent == PKG / "csrc" for s in srcs)
+    for src in srcs:
+        cmd = build.compile_command("nvcc", src, "/x/a.o")
+        line = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in line
+        assert "-fmad=false" in cmd and "-O3" in cmd and "-c" in cmd and cmd[-1] == src
+        assert "fast_math" not in line and "fast-math" not in line
+    link = build.link_command("nvcc", ["/x/a.o", "/x/b.o"], "/x/lib.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in " ".join(link)
     assert build.BUILD_DIR == str(PKG / "_build")
     assert os.path.basename(build.library_path()).startswith("libpathtrace_")
 

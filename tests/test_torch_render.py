@@ -12,7 +12,8 @@
   JAX op-by-op.
 - The wavefront equals the megakernel (same per-path streams; film sums
   reorder: 1e-4), lane counts do not change the estimate, chunked equals
-  single (1e-5).
+  single (1e-5). Lane counts that do not tile the film take the pool
+  assignment, held against JAX's pool branch (1e-5, equal rays).
 - The fused entry on the CPU (the kernel's plain version) against the JAX
   fused engine in interpret mode on the planar scene, at the bars of
   tests/test_fused.py: pixels > 0.99 within 1e-4, mean 2e-3, rays 1e-3.
@@ -111,10 +112,41 @@ def test_render_without_nee_matches_jax_render():
 
 
 def test_wavefront_lanes_must_tile_the_film():
+    """The fused engine (and its kernel) keeps the static strided film, so
+    its lanes must tile the film; the plain wavefront takes any lane count
+    (test_wavefront_pool_matches_jax)."""
     scene = procedural.cornell_box_scene()
     with pytest.raises(ValueError, match="lanes"):
-        render_wavefront(scene, procedural.default_camera(8, 8), 1, rng.make_key(0),
-                         lanes=48, device="cpu")
+        render_wavefront_fused(scene, procedural.default_camera(8, 8), 1, rng.make_key(0),
+                               lanes=48, device="cpu")
+    img = render_wavefront(scene, procedural.default_camera(8, 8), 1, rng.make_key(0),
+                           lanes=48, device="cpu")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+
+
+@pytest.mark.parametrize("wh,lanes", [(8, 48), (32, 600)])
+def test_wavefront_pool_matches_jax(wh, lanes):
+    """Lanes that neither divide nor are a multiple of the pixel count take
+    the pool assignment (shared next-path counter, per-pixel film): the
+    same paths as JAX render_wavefront's pool branch, film sums reordered
+    (rtol = atol = 1e-5), equal ray counts."""
+    from pathtrace_tpu.integrator.wavefront import render_wavefront_stats as jax_stats
+    js = jproc.cornell_box_scene()
+    a, rays_a = jax_stats(js, jproc.default_camera(wh, wh), 2, jrng.make_key(4), lanes=lanes)
+    b, rays_b = render_wavefront_stats(port_scene(js), procedural.default_camera(wh, wh), 2,
+                                       rng.make_key(4), lanes=lanes, device="cpu")
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
+    assert rays_b == int(rays_a)
+
+
+def test_wavefront_pool_chunked_equals_single():
+    scene = procedural.cornell_box_scene()
+    cam = procedural.default_camera(8, 8)
+    one, r1 = render_wavefront_stats(scene, cam, 6, rng.make_key(3), lanes=40, device="cpu")
+    chunked, r2 = render_wavefront_chunked(scene, cam, 6, rng.make_key(3), lanes=40,
+                                           chunk_spp=4, device="cpu")
+    np.testing.assert_allclose(one.numpy(), chunked.numpy(), rtol=1e-5, atol=1e-5)
+    assert r1 == r2
 
 
 def test_fused_plain_matches_jax_fused_planar():

@@ -113,9 +113,6 @@ def test_preset_table():
         assert (tp.width, tp.height, tp.spp, tp.use_bvh) == (jp.width, jp.height, jp.spp,
                                                              jp.use_bvh)
         assert dataclasses.asdict(tp.cfg) == dataclasses.asdict(jp.cfg)
-    for name in ("mesh512", "multihost1024"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            presets.build_preset_scene(presets.get_preset(name))
     with pytest.raises(KeyError):
         presets.get_preset("nope")
 
@@ -123,8 +120,9 @@ def test_preset_table():
 @pytest.mark.parametrize("name", ["cornell64", "diffuse256_nonee", "glass512",
                                   "reference_demo"])
 def test_preset_scene_matches_unreordered_jax_scene(name):
-    """The port builds presets without the BVH reorder (use_bvh has no
-    effect yet), so compare against the JAX preset's unreordered scene."""
+    """Small presets stay on the brute raycast, without JAX's BVH reorder,
+    so compare against the JAX preset's unreordered scene (the mesh
+    presets: test_torch_mesh.py::test_mesh_preset_matches_jax)."""
     ref = scene_to_numpy(jpresets.get_preset(name).build_scene())
     got = scene_to_numpy(presets.build_preset_scene(presets.get_preset(name)))
     for k in ref:

@@ -7,6 +7,8 @@ import dataclasses
 
 import numpy as np
 
+from pathtrace_tpu_torch.models.scene import CLUSTER_FIELDS
+
 MAT_FIELDS = ("emittance", "albedo", "specular", "opacity", "roughness", "metallic")
 
 
@@ -23,6 +25,11 @@ def scene_to_numpy(scene) -> dict:
     d["lights"] = np.asarray(scene.lights)
     d["light_pack"] = np.asarray(scene.light_pack)
     d["num_lights"] = scene.num_lights
+    clusters = getattr(scene, "clusters", None)
+    if clusters is not None and clusters.dup_map is not None:
+        # KD cells (both packages name their leaves alike)
+        for f in CLUSTER_FIELDS:
+            d[f"clusters.{f}"] = np.asarray(getattr(clusters, f))
     return d
 
 
