@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on one NVIDIA GPU: the main path, the Cornell
+Drives the port's three paths on one NVIDIA GPU: the main path, the Cornell
 box with two spheres at 256x256 @ 1024 spp through the fused engine's CUDA
-bounce kernel (the call `cli render --engine fused` makes), and the mesh
-path, blob82k at 256x256 @ 64 spp through the wavefront engine and the KD
-raycast kernel (the call `BENCH_SCENE=mesh` benchmarks). Phases, one line
-each (or one per comparison):
+bounce kernel (the call `cli render --engine fused` makes); the mesh path,
+blob82k at 256x256 @ 64 spp through the wavefront engine and the KD raycast
+kernel (the call `BENCH_SCENE=mesh` benchmarks); and the training path, one
+train step on Cornell + spheres at 128x128 @ 64 spp whose recording sweep
+runs the all-triangles closest-hit kernel (the call `BENCH_SCENE=train`
+benchmarks). Phases, one line each (or one per comparison):
 
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
      fails unless the card is compute capability 9.0 (Hopper);
@@ -33,10 +35,27 @@ each (or one per comparison):
      against the committed golden (tests/golden/blob82k_48x48_4spp_seed11.npy,
      at tools/tpu_cpu_agreement.py's bar); then `cli render --preset
      mesh512` at 64x64 @ 4 spp as a subprocess.
+  6. the training path: the all-triangles kernel against its plain version
+     on 65,536 camera rays at 256x256 on Cornell + spheres, 65,536 rays
+     leaving the surface and 65,536 shadow rays, camera rays on the
+     1,294-triangle sphere_mesh_scene(3) (two shared-memory tiles), and
+     1,048,576 camera rays, one per lane of the train step's recording
+     sweep, in both modes: hit and idx bit-equal, t/u/v bit-equal where
+     hit; times (the kernel's as the mean of 20 launches). Then
+     one train step at 128x128 @ 64 spp after a warm-up (launch count,
+     seconds, paths/s, finite loss and grads); the step at 4 spp through the
+     kernel and through the plain search (loss and grads within 1e-5
+     relative per field); wavetape grads against the lockstep scan-AD grads
+     at 24x24 @ 8 spp (per field, max error over the field's max below
+     1e-3); then `cli grad-check` at 16x16 @ 4 spp as a subprocess.
 
-It then prints the card line, a JSON line describing each kernel, and last
-{"ok": true, "device": {...}}. Any failure raises (non-zero exit) and no
-result line is printed. Needs no network; imports no JAX.
+Phases 3 and 4 hold the fused kernel against the wavefront through the
+plain searches only. It then prints the card line, a JSON line describing
+each kernel (times, the plain version's time, and the bound: the least time
+the card could take for the kernel's work at its FP32 peak and memory rate,
+from this run's inputs), and last {"ok": true, "device": {...}}. Any
+failure raises (non-zero exit) and no result line is printed. Needs no
+network; imports no JAX.
 """
 
 from __future__ import annotations
@@ -55,6 +74,88 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+# Least-time model of a kernel's work on one H100 SXM (NVIDIA's data sheet):
+# FP32 outside the tensor cores, and HBM3.
+FP32_PEAK = 67e12   # operations/s
+HBM_RATE = 3.35e12  # bytes/s
+# FP32 operations, counted from the sources: the stages of one
+# Möller-Trumbore test (csrc/mt.cuh), each needed only where the one before
+# passed: p = dir x e2 and det (14); tvec and u where det >= EPS (8); q, v
+# and u + v where 0 <= u <= det (15); 1/det and t where v >= 0 and
+# u + v <= det (7) (mt_pair_ops counts them from a run's rays). One sphere
+# test (intersect_spheres_all), one ray-cell slab test (two corner
+# subtractions and products, 12). SHADE_OPS is an estimate, not a count
+# operation by operation: a rough hand count of one bounce's shading of a
+# gltfpbr surface (csrc/bsdf.cuh; the room's walls) with special functions
+# at 1 each: sample ~80, eval ~174 twice (the bounce's and NEE's), pdf ~94,
+# the light sample ~70, the hit frame ~65, weight, RR and next ray ~40.
+# Integer work (Philox) is not counted, so the bound stays a least time.
+MT_STAGE_OPS = (14, 8, 15, 7)
+SPHERE_OPS, SLAB_OPS, SHADE_OPS = 28, 12, 700
+RAY_BYTES = 32      # org, dir, t_min, t_max: float32
+HIT_BYTES = 17      # hit (1), t, u, v, idx (4 each)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of ops at FP32_PEAK and bytes at
+    HBM_RATE."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mt_pair_ops(table, org, dirn):
+    """(R,) float64: the FP32 operations that the Möller-Trumbore tests of
+    each ray against the rows [v0 | e1 | e2] of `table` need, stage by stage
+    (MT_STAGE_OPS); the kernels run all four stages for every pair."""
+    import torch
+
+    from pathtrace_tpu_torch.utils.math3 import EPS
+
+    v0, e1, e2 = (table[None, :, i:i + 3] for i in (0, 3, 6))
+    rows = max(1, (1 << 22) // max(table.shape[0], 1))
+    out = []
+    for i in range(0, org.shape[0], rows):
+        o, d = org[i:i + rows, None, :], dirn[i:i + rows, None, :]
+        p = torch.linalg.cross(d.expand(-1, table.shape[0], -1), e2.expand(d.shape[0], -1, -1))
+        det = (p * e1).sum(-1)
+        tvec = o - v0
+        u = (p * tvec).sum(-1)
+        v = (torch.linalg.cross(tvec, e1.expand_as(tvec)) * d).sum(-1)
+        s1 = det >= EPS
+        s2 = s1 & (u >= 0) & (u <= det)
+        s3 = s2 & (v >= 0) & (u + v <= det)
+        a, b, c, e = MT_STAGE_OPS
+        out.append((a + b * s1.double() + c * s2.double() + e * s3.double()).sum(-1))
+    return torch.cat(out) if out else torch.zeros((0,), dtype=torch.float64, device=org.device)
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor in a (nested) dataclass."""
+    import dataclasses
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
+
+
+def timed_launches(fn, n: int = 20) -> float:
+    """Mean milliseconds of n calls of fn() after one warm-up call, between
+    two synchronized CUDA events."""
+    import torch
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def timed(fn):
@@ -103,11 +204,39 @@ def run_cli(args: list, out: str, size: int, tag: str) -> None:
           flush=True)
 
 
-def kd_compare(mesh, cam) -> tuple[float, float, float]:
+def kd_bound(clusters, org, dirn, t_min, t_max, hit, t) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, MT tests) of the KD raycast on these rays: the
+    slab test of every cell and the MT tests of the members of each cell a
+    ray crosses no later than its hit (every crossed cell on a miss), which
+    is what the early exit cannot skip, each charged the stages it needs
+    (mt_pair_ops); bytes: the rays, their results, and the cell and member
+    tables once."""
+    import torch
+
+    from pathtrace_tpu_torch.accel.binned import safe_inv_dir, slab_all
+
+    cross, tnear = slab_all(org, safe_inv_dir(dirn), clusters.bmin, clusters.bmax, t_min, t_max)
+    reach = torch.where(hit, t, torch.full_like(t, float("inf")))
+    need = cross & (tnear <= reach[:, None])
+    tests = (need.double() @ clusters.prim_count.double()).sum().item()
+    mt_ops = 0.0
+    for m, (start, count) in enumerate(zip(clusters.prim_start.tolist(),
+                                           clusters.prim_count.tolist())):
+        rays = need[:, m].nonzero()[:, 0]
+        if rays.numel() and count:
+            mt_ops += mt_pair_ops(clusters.members[start:start + count], org[rays],
+                                  dirn[rays]).sum().item()
+    r = org.shape[0]
+    ops = mt_ops + r * clusters.num_clusters * SLAB_OPS + 3 * r
+    return (*bound(ops, r * (RAY_BYTES + HIT_BYTES) + tensor_bytes(clusters)), tests)
+
+
+def kd_compare(mesh, cam) -> tuple[float, float, float, tuple]:
     """[5 kd compare]: the KD kernel against its plain version on the card,
     on 65,536 camera, surface and shadow rays in both modes. Returns the
     kernel's and the plain version's ms for the camera rays in closest mode
-    (the wavefront's first bounce at 256x256) and the largest t/u/v error."""
+    (the wavefront's first bounce at 256x256), the largest t/u/v error, and
+    kd_bound of those rays."""
     from pathtrace_tpu_torch.ops import kd_raycast as kd
 
     rays = kd.probe_rays(mesh, cam, cam.width * cam.height, seed=3)
@@ -133,8 +262,12 @@ def kd_compare(mesh, cam) -> tuple[float, float, float]:
             if agree < 0.9999 or not close:
                 fail(f"KD kernel disagrees with its plain version ({name}, {mode})")
             if (name, mode) == ("camera", "closest"):
-                timing = (k_ms, p_ms)
-    return timing[0], timing[1], max_err
+                timing = (k_ms, p_ms, kd_bound(mesh.clusters, *args, p[0], p[1]))
+    b_ms, b_by, tests = timing[2]
+    print(f"[5 kd compare] bound of the camera rays, closest: {tests:.0f} MT tests needed "
+          f"({tests / rays['camera'][0].shape[0]:.1f} a ray), {b_ms:.6f} ms ({b_by}); the "
+          f"kernel takes {timing[0] / b_ms:.1f}x its bound", flush=True)
+    return timing[0], timing[1], max_err, timing[2][:2]
 
 
 def mesh_phase(smi: str) -> dict:
@@ -158,7 +291,7 @@ def mesh_phase(smi: str) -> dict:
           f"cells, {mesh.clusters.num_members} member slots, loaded and built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     cam = procedural.default_camera(256, 256)
-    k_ms, p_ms, max_err = kd_compare(mesh, cam)
+    k_ms, p_ms, max_err, (b_ms, b_by) = kd_compare(mesh, cam)
 
     # the mesh path: what `BENCH_SCENE=mesh` runs
     cfg = IntegratorConfig()
@@ -217,7 +350,197 @@ def mesh_phase(smi: str) -> dict:
     return {"name": "kd_raycast", "route": "cuda",
             "source": "pathtrace_tpu_torch/csrc/kd_raycast.cu",
             "replaces": "pathtrace_tpu/ops/pallas/pair_kernel.py:142",
-            "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+            "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def main_path_needs(scene, cam, key, cfg, lanes) -> tuple[float, int, int]:
+    """(MT operations, shaded hits, rays) that the main path's rays at 32
+    spp need: the wavefront on the fused kernel's scene, film, lanes and
+    draws through the plain search, each closest ray of a live lane and each
+    shadow ray of a live hit charged mt_pair_ops against every triangle."""
+    import torch
+
+    from pathtrace_tpu_torch.integrator.megakernel import (default_raycast,
+                                                           default_shadow_raycast,
+                                                           shadow_visibility)
+    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+
+    table = scene.tris.search_table
+    raycast = default_raycast(scene, mt.mt_closest_plain)
+    visible = shadow_visibility(default_shadow_raycast(scene, mt.mt_closest_plain))
+    step, total = {}, {"ops": 0.0, "hits": 0}
+
+    def counted_raycast(sc, org, dirn, t_min, t_max):
+        hit = raycast(sc, org, dirn, t_min, t_max)
+        step["closest"], step["hit"] = mt_pair_ops(table, org, dirn), hit.hit
+        return hit
+
+    def counted_visible(sc, org, dirn, t_min, t_max, light_tri):
+        step["shadow"] = mt_pair_ops(table, org, dirn)
+        return visible(sc, org, dirn, t_min, t_max, light_tri)
+
+    def on_iteration(ray_ids, lane_iter, alive):
+        live_hit = alive & step["hit"]
+        ops = torch.where(alive, step["closest"], 0.0).sum()
+        if "shadow" in step:
+            ops = ops + torch.where(live_hit, step["shadow"], 0.0).sum()
+        total["ops"] += ops.item()
+        total["hits"] += int(live_hit.sum())
+        step.clear()
+
+    with torch.no_grad():
+        _, rays = _run_wavefront(scene, cam, 32, key, cfg, lanes, raycast_fn=counted_raycast,
+                                 visible_fn=counted_visible, on_iteration=on_iteration)
+    return total["ops"], total["hits"], rays
+
+
+def mt_compare(scene, sets: dict, tag: str) -> dict:
+    """[6 mt compare]: the all-triangles kernel against its plain version on
+    the card, both modes: hit and idx bit-equal, t/u/v bit-equal where hit.
+    The kernel's time is the mean of 20 launches (one launch of 65,536 rays
+    lasts about as long as its launch overhead). Returns {(set, mode):
+    (kernel ms, plain ms, max abs err of t/u/v)}."""
+    import torch
+
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+
+    times = {}
+    for name, args in sets.items():
+        for mode in mt.MODES:
+            k_hit, *k = mt.mt_closest(scene.tris, *args, mode)
+            k_ms = timed_launches(lambda: mt.mt_closest(scene.tris, *args, mode))
+            (p_hit, *p), p_ms = timed(lambda: mt.mt_closest_plain(scene.tris, *args, mode))
+            k_t, k_idx, k_u, k_v = (x[p_hit] for x in k)
+            p_t, p_idx, p_u, p_v = (x[p_hit] for x in p)
+            equal = (torch.equal(k_hit, p_hit) and torch.equal(k_idx, p_idx)
+                     and all(torch.equal(a, b) for a, b in ((k_t, p_t), (k_u, p_u), (k_v, p_v))))
+            err = max(((a - b).abs().max().item() if a.numel() else 0.0)
+                      for a, b in ((k_t, p_t), (k_u, p_u), (k_v, p_v)))
+            print(f"[6 mt compare] {tag} {name} rays {args[0].shape[0]} x {scene.num_tris} "
+                  f"triangles {mode}: hit rate {p_hit.double().mean().item():.4f}, bit-equal "
+                  f"{equal}, max abs err t/u/v {err:.3e}; kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms ({p_ms / k_ms:.1f}x)", flush=True)
+            if not equal:
+                fail(f"the all-triangles kernel disagrees with its plain version ({tag} {name} "
+                     f"{mode})")
+            times[name, mode] = (k_ms, p_ms, err)
+    return times
+
+
+def grad_errors(ref, mine) -> dict:
+    """{field: max |ref - mine| / max |ref|} over both material tables."""
+    from pathtrace_tpu_torch.diff.grad import MAT_FIELDS
+
+    out = {}
+    for table, a, b in (("tri", ref[0], mine[0]), ("sph", ref[1], mine[1])):
+        for f in MAT_FIELDS:
+            x, y = getattr(a, f).double(), getattr(b, f).double()
+            out[f"{table}.{f}"] = ((x - y).abs().max() / x.abs().max().clamp(min=1e-6)).item()
+    return out
+
+
+def train_phase(smi: str) -> dict:
+    """Phase 6, the training path; returns its kernels-line entry."""
+    import torch
+
+    from pathtrace_tpu_torch import bench
+    from pathtrace_tpu_torch.diff import material_grads, material_grads_wavetape
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.ops import kd_raycast as kd
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+    from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
+    from pathtrace_tpu_torch.utils import rng
+
+    # (a) the kernel against its plain version: camera rays at 256x256
+    # (65,536), bounce rays, NEE rays; a table of two tiles; and the train
+    # step's launch shape, one ray per recording lane (1,048,576 camera rays
+    # at 1024x1024, the sweep's first bounce)
+    scene = procedural.cornell_box_scene(include_spheres=True).to("cuda")
+    cam = procedural.default_camera(256, 256)
+    sets = kd.probe_rays(scene, cam, cam.width * cam.height, seed=3)
+    mt.mt_closest(scene.tris, *sets["camera"], "closest")  # loads the library
+    times = mt_compare(scene, sets, "cornell+spheres")
+    big = procedural.sphere_mesh_scene(3).to("cuda")
+    times.update(mt_compare(big, {"mesh camera": kd.probe_rays(big, cam, 4, seed=3)["camera"]},
+                            "sphere_mesh3"))
+    side = int(bench.TRAIN_LANES ** 0.5)
+    lanes_set = kd.probe_rays(scene, procedural.default_camera(side, side), 4, seed=3)["camera"]
+    times.update(mt_compare(scene, {"lanes camera": lanes_set}, "cornell+spheres"))
+    k_ms, p_ms, _ = times["lanes camera", "closest"]
+    max_err = max(e for _, _, e in times.values())
+    r, n = lanes_set[0].shape[0], scene.num_tris
+    ops = mt_pair_ops(scene.tris.search_table, lanes_set[0], lanes_set[1]).sum().item()
+    b_ms, b_by = bound(ops, r * (RAY_BYTES + HIT_BYTES) + n * 9 * 4)
+    print(f"[6 mt compare] bound of {r} rays x {n} triangles: {ops:.4e} FP32 operations "
+          f"needed ({ops / (r * n):.2f} a pair), {b_ms:.6f} ms ({b_by}); the kernel takes "
+          f"{k_ms / b_ms:.1f}x its bound", flush=True)
+
+    # (b) the training path: one step at the production shape after a warm-up
+    step = bench.make_train_step("cuda")
+    step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # phase 6a's ray sets, the scenes
+    spp, paths = 64, 128 * 128 * 64
+    mt_kernel.LAUNCHES = 0
+    (loss, grads, img), ms = timed(lambda: step(spp))
+    launches = mt_kernel.LAUNCHES
+    print(f"[6 train] train step cornell+spheres 128x128@{spp}spp lanes {bench.TRAIN_LANES} "
+          f"chunk {bench.TRAIN_CHUNK}: {launches} all-triangles kernel launches, "
+          f"{ms / 1e3:.4f} s, {paths / ms * 1e3 / 1e6:.4f}M paths/s, loss {loss.item():.6f}, "
+          f"peak memory {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above the "
+          f"{held / 1e9:.3f} GB held before the step, on {smi}", flush=True)
+    if launches < 1:
+        fail("the training path launched no all-triangles kernel")
+    bench.check_train_output(loss, grads, img)
+
+    # (c) the step at 4 spp through the kernel and through the plain search:
+    # bit-equal winners, so equal tapes, loss and grads
+    kern = bench.make_train_step("cuda")(4)
+    plain = bench.make_train_step("cuda", search=mt.mt_closest_plain)(4)
+    errs = grad_errors(plain[1], kern[1])
+    loss_rel = abs(kern[0].item() - plain[0].item()) / plain[0].item()
+    print(f"[6 train] 128x128@4spp kernel vs plain search: loss rel {loss_rel:.3e}, max grad "
+          f"rel err {max(errs.values()):.3e} ({max(errs, key=errs.get)})", flush=True)
+    if loss_rel > 1e-5 or max(errs.values()) > 1e-5:
+        fail("the train step through the kernel disagrees with the plain search")
+
+    # (d) wavetape grads against the lockstep scan-AD grads on the card
+    cam24 = procedural.default_camera(24, 24)
+    cfg, key = IntegratorConfig(), rng.make_key(0)
+    g_scan = material_grads(scene, cam24, 8, key, cfg=cfg, device="cuda")
+    g_tape = material_grads_wavetape(scene, cam24, 8, key, cfg, lanes=24 * 24 * 8,
+                                     chunk=24 * 24 * 8, device="cuda")
+    bench.check_train_output(g_scan[2], g_tape[:2], g_tape[2])
+    errs = grad_errors(g_scan, g_tape)
+    print(f"[6 train] 24x24@8spp wavetape vs scan-AD: max grad rel err "
+          f"{max(errs.values()):.3e} ({max(errs, key=errs.get)}), all finite", flush=True)
+    if max(errs.values()) > 1e-3:
+        fail("wavetape grads disagree with the scan-AD grads")
+
+    # (e) the gradient oracle as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pathtrace_tpu_torch.cli", "grad-check",
+                           "--preset", "cornell64", "--width", "16", "--height", "16",
+                           "--spp", "4"], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"cli grad-check exited {proc.returncode}:\n{proc.stderr}\n{proc.stdout}")
+    report = json.loads(proc.stdout)
+    print(f"[6 cli] grad-check cornell64 16x16@4spp: exit 0, pass {report['pass']}, mode "
+          f"{report['mode']}, max rel err {report['max_rel_err']:.3e}, device "
+          f"{report['device']}, {time.perf_counter() - t0:.1f} s", flush=True)
+    if report["pass"] is not True:
+        fail("cli grad-check did not pass")
+
+    return {"name": "mt_closest", "route": "cuda",
+            "source": "pathtrace_tpu_torch/csrc/mt_closest.cu",
+            "replaces": "pathtrace_tpu/ops/pallas/intersect_kernel.py:30",
+            "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main() -> int:
@@ -232,6 +555,7 @@ def main() -> int:
     from pathtrace_tpu_torch.integrator.config import IntegratorConfig
     from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
     from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.ops import mt_closest as mt
     from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
     from pathtrace_tpu_torch.ops.cuda import build
     from pathtrace_tpu_torch.utils import rng
@@ -254,7 +578,9 @@ def main() -> int:
     print(f"[2 build] {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}; "
           f"{' | '.join(ptxas)}", flush=True)
 
-    # 3. kernel vs plain version on the card (bars of tests/test_fused.py)
+    # 3. kernel vs plain version on the card (bars of tests/test_fused.py);
+    # the wavefront takes the plain all-triangles search, so the reference
+    # runs no kernel
     cfg = IntegratorConfig()
     cam32 = procedural.default_camera(32, 32)
     key = rng.make_key(5)
@@ -263,7 +589,7 @@ def main() -> int:
         a, rays_a = bk.render_wavefront_fused(scene, cam32, spp, key, cfg, lanes=1024,
                                               chunk_spp=spp, device="cuda")
         b, rays_b = render_wavefront_stats(scene, cam32, spp, key, cfg, lanes=1024,
-                                           device="cuda")
+                                           device="cuda", search=mt.mt_closest_plain)
         a, b = a.cpu().double(), b.cpu().double()
         tol = 1e-4 if not spheres else 1e-3
         agree = torch.isclose(a, b, rtol=tol, atol=tol).double().mean().item()
@@ -314,7 +640,7 @@ def main() -> int:
     (k_img, k_rays), k_ms = timed(lambda: bk.render_wavefront_fused(
         scene, cam, 32, pass_key, cfg, lanes=lanes, chunk_spp=32, device="cuda"))
     (p_img, p_rays), p_ms = timed(lambda: render_wavefront_stats(
-        scene, cam, 32, pass_key, cfg, lanes=lanes, device="cuda"))
+        scene, cam, 32, pass_key, cfg, lanes=lanes, device="cuda", search=mt.mt_closest_plain))
     main_rel = abs(img.mean().item() - p_img.mean().item()) / p_img.mean().item()
     k32_rel = abs(k_img.mean().item() - p_img.mean().item()) / p_img.mean().item()
     k_img, p_img = k_img.double(), p_img.double()
@@ -330,12 +656,25 @@ def main() -> int:
         fail("main-path image mean is not within 2% of the plain version's")
     if agree <= 0.99 or rays_rel > 1e-5:
         fail("kernel disagrees with its plain version at the main path's shape")
+    # its least time at 32 spp: the MT stages that the traced rays need
+    # against every triangle, every sphere test, one shading per hit; bytes:
+    # the scene once, the film once
+    mt_ops, hits, c_rays = main_path_needs(scene, cam, pass_key, cfg, lanes)
+    b1_ops = mt_ops + k_rays * scene.num_spheres * SPHERE_OPS + hits * SHADE_OPS
+    b1_ms, b1_by = bound(b1_ops, tensor_bytes(scene) + k_img.numel() * 4)
+    print(f"[4 main] bound at 32spp: {mt_ops:.4e} MT operations needed over {c_rays} rays "
+          f"({mt_ops / (c_rays * scene.num_tris):.2f} a pair), {hits} shaded hits; "
+          f"{b1_ops:.4e} FP32 operations, {b1_ms:.3f} ms ({b1_by}); the kernel takes "
+          f"{k_ms / b1_ms:.1f}x its bound", flush=True)
+    if c_rays != p_rays:
+        fail(f"the bound's count saw {c_rays} rays, the plain version traced {p_rays}")
 
     with tempfile.TemporaryDirectory() as tmp:
         run_cli(["--preset", "cornell64", "--engine", "fused"],
                 os.path.join(tmp, "cornell64.png"), 64, "4 cli")
 
     kd_entry = mesh_phase(smi)
+    mt_entry = train_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -347,7 +686,10 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
-    }, kd_entry]}))
+        "bound_ms": b1_ms,
+        "bound_by": b1_by,
+        "library_ms": None,
+    }, kd_entry, mt_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,6 +2,7 @@
 
     python -m pathtrace_tpu_torch.bench
     BENCH_SCENE=mesh python -m pathtrace_tpu_torch.bench
+    BENCH_SCENE=train python -m pathtrace_tpu_torch.bench
 
 Prints ONE JSON line with the schema of the repo's bench.py:
 {"metric", "value", "unit", "vs_baseline", "detail"}. vs_baseline is camera
@@ -13,11 +14,18 @@ Scenes: cornell and glass render with the fused CUDA engine (the CLI's
 call, chunks of 256 spp; default 256x256 @ 1024 spp). mesh is blob82k
 (assets/blob82k.obj in the Cornell room, KD cells of 1024) through the
 wavefront engine and the KD raycast kernel, chunks of 64 spp (default
-256x256 @ 64 spp, 65536 lanes), as the JAX bench.py renders it.
+256x256 @ 64 spp, 65536 lanes), as the JAX bench.py renders it. train is
+one training step (parallel/mesh.py::train_step_wavetape, the JAX package's
+production step config, tools/gradcheck_tpu.py): Cornell + spheres,
+128x128 @ 64 spp, L2 loss against a zero target; one wavefront recording
+sweep through the all-triangles kernel, then the chunked replay backward.
+Its line reports paths/s (value), seconds per step and the kernel's
+launches per step; vs_baseline is null, since the reference renders only.
 
-Environment: BENCH_SCENE=cornell|glass|mesh, BENCH_W, BENCH_H, BENCH_SPP,
-BENCH_LANES, BENCH_CHUNK, BENCH_REPEATS. Needs a CUDA device; there is no
-CPU fallback.
+Environment: BENCH_SCENE=cornell|glass|mesh|train, BENCH_W, BENCH_H,
+BENCH_SPP, BENCH_LANES, BENCH_CHUNK (train: paths per replay chunk),
+BENCH_REPEATS.
+Needs a CUDA device; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -33,6 +41,14 @@ REF_PATHS_PER_SEC = 54e6  # BASELINE.md derived ballpark (13-min DiffuseRoom)
 # (pool assignment) that the JAX bench chose against a TPU stride problem:
 # fewer iterations, each bound by host-side launches (PERF.md).
 MESH_LANES = 65536
+# Recording lanes and replay chunk (paths) of the train step, chosen on an
+# H100 at 128x128 @ 64 spp (PERF.md): with every path in one lane the
+# recording sweep is 17 iterations instead of 186 at 65,536 lanes, and the
+# step is bound by host-side launches per iteration, not by lane count.
+# Chunks of 262,144 paths beat 65,536 (more chunks, each as costly on the
+# host) and 1,048,576 (one chunk replays every path to the longest length).
+TRAIN_LANES = 1048576
+TRAIN_CHUNK = 262144
 
 
 def _run(cmd) -> str:
@@ -58,6 +74,108 @@ def nvcc_version() -> str:
     return _run([nvcc, "--version"]).splitlines()[-1]
 
 
+def train_problem(dev, w: int = 128, h: int = 128):
+    """(scene, camera, target, cfg, key) of BENCH_SCENE=train: Cornell +
+    spheres at w x h against a zero target."""
+    import torch
+
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.utils import rng
+
+    return (procedural.cornell_box_scene(include_spheres=True).to(dev),
+            procedural.default_camera(w, h), torch.zeros((h, w, 3), device=dev),
+            IntegratorConfig(), rng.make_key(0))
+
+
+def make_train_step(dev, w: int = 128, h: int = 128, lanes: int = TRAIN_LANES,
+                    chunk: int = TRAIN_CHUNK, search=None):
+    """step(spp) -> (loss, (tri grads, sphere grads), image): the train
+    step of train_problem (`search` as in megakernel.default_raycast)."""
+    from pathtrace_tpu_torch.parallel.mesh import train_step_wavetape
+
+    scene, camera, target, cfg, key = train_problem(dev, w, h)
+
+    def step(spp: int):
+        return train_step_wavetape(scene, camera, target, spp, key, cfg,
+                                   lanes=min(lanes, w * h * spp),
+                                   chunk=min(chunk, w * h * spp), device=dev,
+                                   search=search)
+
+    return step
+
+
+def check_train_output(loss, grads, img) -> None:
+    """Raise unless the step's loss, grads and image are finite."""
+    import torch
+
+    from pathtrace_tpu_torch.diff.grad import MAT_FIELDS
+
+    fields = [getattr(m, f) for m in grads for f in MAT_FIELDS]
+    if not all(bool(torch.isfinite(x).all()) for x in [loss, img, *fields]):
+        raise RuntimeError("non-finite loss, image or grads in the train step")
+
+
+def train_bench(dev, repeats: int) -> None:
+    """BENCH_SCENE=train: seconds per step, best of `repeats`, and the
+    seconds of its recording sweep alone (the rest is the replay backward)."""
+    import torch
+
+    from pathtrace_tpu_torch.diff.wavetape import record_paths_wavefront
+    from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
+
+    w = int(os.environ.get("BENCH_W", 128))
+    h = int(os.environ.get("BENCH_H", 128))
+    spp = int(os.environ.get("BENCH_SPP", 64))
+    lanes = int(os.environ.get("BENCH_LANES", TRAIN_LANES))
+    chunk = int(os.environ.get("BENCH_CHUNK", TRAIN_CHUNK))
+    step = make_train_step(dev, w, h, lanes, chunk)
+    step(1)  # warm-up: builds the kernel library and launches it
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak of the timed steps alone
+    dt, launches = float("inf"), 0
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        launches0 = mt_kernel.LAUNCHES
+        t0 = time.perf_counter()
+        loss, grads, img = step(spp)
+        torch.cuda.synchronize()
+        dt = min(dt, time.perf_counter() - t0)
+        launches = mt_kernel.LAUNCHES - launches0
+    check_train_output(loss, grads, img)
+    paths = w * h * spp
+    scene, camera, _, cfg, key = train_problem(dev, w, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    record_paths_wavefront(scene, camera, spp, key, cfg, min(lanes, paths))
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    smi = nvidia_smi_line()
+    print(json.dumps({
+        "metric": f"paths_per_sec_train_step_{w}x{h}_{spp}spp",
+        "value": round(paths / dt, 1),
+        "unit": "paths/s",
+        "vs_baseline": None,
+        "detail": {
+            "seconds_per_step": round(dt, 4),
+            "record_seconds": round(record_s, 4),
+            "loss": loss.item(),
+            "resolution": [w, h],
+            "spp": spp,
+            "lanes": lanes,
+            "chunk_paths": chunk,
+            "repeats": repeats,
+            "engine": "wavetape-mt-cuda",
+            "mt_closest_launches_per_step": launches,
+            "peak_memory_gb": round(torch.cuda.max_memory_allocated(dev) / 1e9, 3),
+            "device": torch.cuda.get_device_name(dev),
+            "power_limit": smi.split(",")[-1].strip(),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "nvcc": nvcc_version(),
+        },
+    }))
+
+
 def main() -> None:
     import torch
 
@@ -71,6 +189,8 @@ def main() -> None:
 
     dev = resolve_device("cuda")
     which = os.environ.get("BENCH_SCENE", "cornell")
+    if which == "train":
+        return train_bench(dev, int(os.environ.get("BENCH_REPEATS", 3)))
     mesh = which == "mesh"
     w = int(os.environ.get("BENCH_W", 256))
     h = int(os.environ.get("BENCH_H", 256))
@@ -87,7 +207,8 @@ def main() -> None:
     elif mesh:
         scene = procedural.blob_mesh_scene().with_kd_binned(max_tris=1024)
     else:
-        raise ValueError(f"BENCH_SCENE={which!r}: the port has cornell, glass and mesh")
+        raise ValueError(f"BENCH_SCENE={which!r}: the port has cornell, glass, mesh "
+                         "and train")
     scene = scene.to(dev)
     camera = procedural.default_camera(w, h)
     cfg = IntegratorConfig()

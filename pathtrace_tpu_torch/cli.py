@@ -1,10 +1,12 @@
-"""Command-line harness for the port: the `render` subcommand.
+"""Command-line harness for the port: the `render` and `grad-check`
+subcommands.
 
     python -m pathtrace_tpu_torch.cli render --preset cornell64 --engine fused --out out.png
+    python -m pathtrace_tpu_torch.cli grad-check --preset cornell64 --width 16 --height 16 --spp 4
 
 The device defaults to cuda; without a GPU the command fails rather than
-render on the CPU. Ask for the CPU with --device cpu (every engine then
-runs its plain PyTorch version).
+run on the CPU. Ask for the CPU with --device cpu (every kernel then runs
+its plain PyTorch version).
 """
 
 from __future__ import annotations
@@ -69,6 +71,60 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_grad_check(args) -> int:
+    """Autograd material gradients against the finite-difference oracle
+    (JAX cli.py:94-160); prints one JSON report, exits 0 iff it passes."""
+    from pathtrace_tpu_torch.diff import fd_material_grad_auto, material_grads
+    from pathtrace_tpu_torch.diff.fd import make_frozen_sampler
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.models.presets import build_preset_scene, get_preset
+    from pathtrace_tpu_torch.utils import rng
+    from pathtrace_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    scene = build_preset_scene(get_preset(args.preset)).to(dev)
+    camera = procedural.default_camera(args.width or 32, args.height or 32)
+    key = rng.make_key(args.seed)
+    spp = args.spp or 8
+    if args.quick:
+        # loose mode: FD of the live sampler (detach_sampling off) with
+        # per-parameter tolerances up to 1e-1; Russian roulette off, its
+        # survival flips would show as O(1/h) spikes
+        cfg = IntegratorConfig(rr_bounce=99, detach_sampling=False)
+        frozen = None
+        tol_of = {"albedo": 2e-2, "emittance": 2e-2, "roughness": 1e-1, "specular": 5e-2}
+        fd_kwargs = {}
+    else:
+        # strong contract (default): production gradients (detach_sampling)
+        # against frozen-sampling adaptive central differences with
+        # Richardson extrapolation, at 1e-3
+        cfg = IntegratorConfig(rr_bounce=99, detach_sampling=True)
+        frozen = make_frozen_sampler(scene)
+        tol_of = dict.fromkeys(("albedo", "emittance", "roughness", "specular"), 1e-3)
+        fd_kwargs = dict(h_min=1e-4, agree=0.001, richardson=True)
+
+    g_tri, _, loss = material_grads(scene, camera, spp, key, cfg=cfg, device=dev)
+    light = int(scene.lights[0])
+    checks = []
+    for field, idx, h0 in [("albedo", (0, 0), 2e-2), ("emittance", (light, 0), 5e-2),
+                           ("roughness", (2,), 1e-2), ("specular", (4, 0), 1e-2)]:
+        fd, h_used, conv = fd_material_grad_auto(
+            scene, camera, spp, key, "tris", field, idx, h0=h0, cfg=cfg,
+            sample_mat_fn=frozen, device=dev, **fd_kwargs)
+        ad = float(getattr(g_tri, field)[idx])
+        rel = abs(ad - fd) / max(abs(fd), abs(ad), 1.0)
+        tol = tol_of[field]
+        checks.append({"param": f"{field}{list(idx)}", "autodiff": ad, "fd": fd,
+                       "fd_h": h_used, "fd_converged": conv, "rel_err": rel,
+                       "tol": tol, "ok": rel < tol})
+    ok = all(c["ok"] for c in checks)
+    print(json.dumps({"loss": float(loss), "mode": "quick" if args.quick else "strong-1e-3",
+                      "max_rel_err": max(c["rel_err"] for c in checks), "checks": checks,
+                      "device": str(dev), "pass": ok}, indent=2))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pathtrace_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -87,6 +143,19 @@ def main(argv=None) -> int:
     pr.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     pr.set_defaults(fn=cmd_render)
+
+    pg = sub.add_parser("grad-check", help="autograd vs the FD oracle")
+    pg.add_argument("--preset", default="cornell64")
+    pg.add_argument("--width", type=int, default=0)
+    pg.add_argument("--height", type=int, default=0)
+    pg.add_argument("--spp", type=int, default=0)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--quick", action="store_true",
+                    help="loose live-sampler FD mode; default: the strong "
+                         "frozen-sampling contract at 1e-3")
+    pg.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    pg.set_defaults(fn=cmd_grad_check)
 
     args = p.parse_args(argv)
     return args.fn(args)

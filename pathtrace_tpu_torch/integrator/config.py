@@ -1,9 +1,11 @@
 """Integrator configuration (port of pathtrace_tpu/integrator/config.py).
 
 The reference's compile-time #defines (CudaUtil.cuh:15-19) as a frozen
-dataclass. The gradient-only fields of the JAX config (detach_sampling,
-remat) are carried so configs compare field for field; nothing in this
-primal-only slice reads them.
+dataclass, plus the two gradient switches, which leave the primal
+unchanged: detach_sampling detaches the sampled direction, its pdf and the
+Russian-roulette probability (megakernel.make_bounce_fn), and remat
+checkpoints each lockstep iteration (megakernel.trace_paths_stats). The
+fused CUDA engine renders primal only and reads neither.
 """
 
 from __future__ import annotations

@@ -15,7 +15,12 @@ Estimator semantics follow the reference's GetColor_iter
 - next origin offset +-EPS along the shading normal;
 - NaN NEE contributions are skipped.
 
-Primal only: the JAX version's detached-sampling switch is a no-op here.
+Differentiation (torch autograd): with cfg.detach_sampling the sampled
+direction, its pdf and the Russian-roulette probability are detached
+("detached sampling"), which leaves the primal unchanged and the material
+and emission gradients unbiased; the searches are detached too, and the hit
+is recomputed differentiably at the winner. cfg.remat checkpoints each
+lockstep iteration (torch.utils.checkpoint).
 """
 
 from __future__ import annotations
@@ -23,38 +28,54 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.ops import bsdf
 from pathtrace_tpu_torch.ops.bsdf import ShadeFrame
-from pathtrace_tpu_torch.ops.intersect import (BIG_T, HitRecord, raycast_brute,
-                                               shadow_brute)
+from pathtrace_tpu_torch.ops.intersect import BIG_T, HitRecord
 from pathtrace_tpu_torch.ops.kd_raycast import kd_closest, raycast_kd, shadow_kd
+from pathtrace_tpu_torch.ops.mt_closest import mt_closest, raycast_mt, shadow_mt
 from pathtrace_tpu_torch.utils import math3, rng
 from pathtrace_tpu_torch.utils.math3 import EPS, dot, normalize
 
 
-def default_raycast(scene: Scene, search=kd_closest):
+def _maybe_detach(x: torch.Tensor, cfg: IntegratorConfig) -> torch.Tensor:
+    return x.detach() if cfg.detach_sampling else x
+
+
+def default_raycast(scene: Scene, search=None):
     """Closest-hit backend for the scene (megakernel.py:51-73):
     (scene, org, dirn, t_min, t_max) -> HitRecord. A scene with KD cells
-    goes through them (raycast_kd: the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors; `search` replaces the cell search, as
-    chip_smoke.py does to run the plain version on the card); any other
-    scene goes to brute. The JAX package takes BVH or MT-matmul
-    intersection for small scenes; the port has neither, and brute gives
-    the same winners."""
+    goes through them (raycast_kd), any other scene through the
+    all-triangles search (raycast_mt, the JAX package's MT-matmul and Pallas
+    route). Either search is the CUDA kernel on CUDA tensors and its plain
+    version on CPU tensors; `search` replaces it (kd_closest_plain or
+    mt_closest_plain, as chip_smoke.py does to run the plain version on the
+    card). The JAX package's BVH and binned v1 routes are not ported; they
+    find the same winners."""
     if scene.clusters is not None:
-        return functools.partial(raycast_kd, search=search)
-    return raycast_brute
+        return functools.partial(raycast_kd, search=search or kd_closest)
+    return functools.partial(raycast_mt, search=search or mt_closest)
 
 
-def default_shadow_raycast(scene: Scene, search=kd_closest):
+def default_shadow_raycast(scene: Scene, search=None):
     """Shadow-ray backend (megakernel.py:76-100): (scene, org, dirn,
     t_min, t_max) -> (hit, prim_id, is_sphere), routed as default_raycast."""
     if scene.clusters is not None:
-        return functools.partial(shadow_kd, search=search)
-    return shadow_brute
+        return functools.partial(shadow_kd, search=search or kd_closest)
+    return functools.partial(shadow_mt, search=search or mt_closest)
+
+
+def shadow_visibility(shadow):
+    """visible_fn(scene, org, dirn, t_min, t_max, light_tri) -> reached,
+    from a shadow raycast: the NEE ray reaches the light iff the winning
+    primitive IS the sampled light triangle (megakernel.py:146-169)."""
+    def visible(scene, org, dirn, t_min, t_max, light_tri):
+        s_hit, s_prim, s_sph = shadow(scene, org, dirn, t_min, t_max)
+        return s_hit & ~s_sph & (s_prim == light_tri)
+    return visible
 
 
 def nee_light_pick(scene: Scene, draws: torch.Tensor):
@@ -64,7 +85,7 @@ def nee_light_pick(scene: Scene, draws: torch.Tensor):
 
 
 def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
-                     wo: torch.Tensor, draws: torch.Tensor, shadow_fn) -> torch.Tensor:
+                     wo: torch.Tensor, draws: torch.Tensor, visible_fn) -> torch.Tensor:
     """Next-event estimation (CudaUtil.cuh:234-272): uniform light pick,
     area sample (SamplePrimitive), shadow ray, and
     brdfcos * Llight * cosA / (dist^2 * pdfLight), pdfLight = (1/area)/Nl.
@@ -72,7 +93,9 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     The shadow ray leaves the surface with t in [EPS, dist+1] and reaches
     the light iff the winning primitive IS the sampled light triangle
     (megakernel.py:146-169 gives the reasons for both deviations from the
-    reference). shadow_fn traces it (default_shadow_raycast(scene))."""
+    reference). visible_fn(scene, org, dirn, t_min, t_max, light_tri) ->
+    reached decides it (shadow_visibility of a shadow raycast; the replay
+    reads it from the record). The ray is detached: visibility is discrete."""
     nl = scene.num_lights
     slot, light_tri = nee_light_pick(scene, draws)
     row = scene.light_pack[slot.long()]
@@ -89,9 +112,8 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     dist = torch.sqrt(torch.clamp(dist2, min=math3.TINY))
     sdir = normalize(to_light)
 
-    s_hit, s_prim, s_sph = shadow_fn(scene, hit.p, sdir,
-                                     torch.full_like(dist, EPS), dist + 1.0)
-    reached = s_hit & ~s_sph & (s_prim == light_tri)
+    reached = visible_fn(scene, hit.p.detach(), sdir.detach(), torch.full_like(dist, EPS),
+                         dist.detach() + 1.0, light_tri)
     l_emit = scene.mat.emittance[light_tri.long()]
     light_color = torch.where(reached[:, None], l_emit, torch.zeros_like(l_emit))
 
@@ -105,11 +127,20 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
     return torch.where(finite, contrib, torch.zeros_like(contrib))
 
 
-def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_closest):
-    """One-bounce transition shared by the lockstep megakernel and the
-    regenerating wavefront. Randomness is keyed by (ray_id, lane_iter), so
-    both integrators realize the identical estimator per path. Rays go
-    through default_raycast / default_shadow_raycast (`search` as there).
+def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=None,
+                   raycast_fn=None, visible_fn=None, sample_mat_fn=None):
+    """One-bounce transition shared by the lockstep megakernel, the
+    regenerating wavefront and the gradient recorder and replay
+    (megakernel.py:185-305). Randomness is keyed by (ray_id, lane_iter), so
+    every integrator realizes the identical estimator per path.
+
+    raycast_fn(scene, org, dirn, t_min, t_max) -> HitRecord defaults to
+    default_raycast(scene, search); visible_fn (see nee_contribution) to the
+    shadow_visibility of default_shadow_raycast(scene, search). The
+    recorder tapes through them, the replay rebuilds hits from the tape.
+    sample_mat_fn: optional HitRecord -> Material used ONLY for the
+    sampling-side decisions (direction, pdf, transparency flag); the FD
+    oracle passes a gather of the unperturbed materials (diff/fd.py).
 
     Returns bounce(org, dirn, radiance, weight, depth, refract_cnt,
     refracted, alive, ray_ids, lane_iter) -> (the same state minus the
@@ -117,8 +148,8 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_c
     if cfg.hemisphere not in ("cosine", "uniform"):
         raise ValueError(f"unknown hemisphere {cfg.hemisphere!r}")
     uni = cfg.hemisphere == "uniform"
-    raycast = default_raycast(scene, search)
-    shadow = default_shadow_raycast(scene, search)
+    raycast = raycast_fn or default_raycast(scene, search)
+    visible = visible_fn or shadow_visibility(default_shadow_raycast(scene, search))
 
     def bounce(org, dirn, radiance, weight, depth, refract_cnt, refracted,
                alive, ray_ids, lane_iter):
@@ -148,20 +179,21 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_c
         # per live hit when NEE runs
         rays = alive.sum(dtype=torch.int64)
         if cfg.nee and scene.num_lights > 0:
-            contrib = nee_contribution(scene, hit, frame, wo, draws, shadow)
+            contrib = nee_contribution(scene, hit, frame, wo, draws, visible)
             radiance = radiance + torch.where(live_hit[:, None], weight * contrib,
                                               zero3)
             rays = rays + live_hit.sum(dtype=torch.int64)
 
-        # BSDF sampling (CudaUtil.cuh:276-338)
+        # BSDF sampling (CudaUtil.cuh:276-338); sampling-side material smat
         u_lobe = draws[:, rng.COL_LOBE]
         u_phi = draws[:, rng.COL_PHI]
         u_ry = draws[:, rng.COL_RY]
-        wi = bsdf.sample_bsdf(hit.mat, frame, wo, u_lobe, u_phi, u_ry,
-                              uniform_hemi=uni)
+        smat = hit.mat if sample_mat_fn is None else sample_mat_fn(hit)
+        wi = _maybe_detach(bsdf.sample_bsdf(smat, frame, wo, u_lobe, u_phi, u_ry,
+                                            uniform_hemi=uni), cfg)
         w1 = bsdf.eval_bsdfcos(hit.mat, frame, wo, wi)
-        w2 = torch.clamp(bsdf.pdf_bsdf(hit.mat, frame, wo, wi, uniform_hemi=uni),
-                         min=cfg.pdf_clamp)
+        w2 = _maybe_detach(torch.clamp(bsdf.pdf_bsdf(smat, frame, wo, wi, uniform_hemi=uni),
+                                       min=cfg.pdf_clamp), cfg)
         current_weight = w1 / w2[:, None]
 
         dead_sample = math3.squared_length(wi) <= EPS
@@ -169,8 +201,8 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_c
         weight = torch.where(cont[:, None], weight * current_weight, weight)
 
         # sticky refraction flag: reassigned only on transparent hits
-        # (CudaUtil.cuh:307)
-        transparent = hit.mat.opacity < (1.0 - EPS)
+        # (CudaUtil.cuh:307); a sampling-side decision
+        transparent = smat.opacity < (1.0 - EPS)
         new_refracted = dot(frame.normal, wo) * dot(frame.normal, wi) <= 0.0
         refracted = torch.where(cont & transparent, new_refracted, refracted)
 
@@ -189,7 +221,7 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_c
         # Russian roulette (CudaUtil.cuh:361-373) from the loop-entry depth,
         # skipped by refracting lanes
         rr_lane = cont & ~refracted & (depth >= cfg.rr_bounce)
-        rr_prob = torch.clamp(math3.max3(weight), cfg.rr_stop_prob, 1.0)
+        rr_prob = torch.clamp(math3.max3(_maybe_detach(weight, cfg)), cfg.rr_stop_prob, 1.0)
         rr_survive = draws[:, rng.COL_RR] < rr_prob
         weight = torch.where((rr_lane & rr_survive)[:, None],
                              weight / rr_prob[:, None], weight)
@@ -203,31 +235,11 @@ def make_bounce_fn(scene: Scene, cfg: IntegratorConfig, base_key, *, search=kd_c
     return bounce
 
 
-def make_bounce_step(scene: Scene, cfg: IntegratorConfig, base_key,
-                     ray_ids: torch.Tensor):
-    """Lockstep step: every lane shares the global iteration counter.
-    step(state, it) -> state, with state = (org, dirn, radiance, weight,
-    depth, refract_cnt, refracted, alive, rays)."""
-    bounce = make_bounce_fn(scene, cfg, base_key)
-
-    def step(state, it: int):
-        *lanes, rays = state
-        *lanes, traced = bounce(*lanes, ray_ids, it)
-        return (*lanes, rays + traced)
-
-    return step
-
-
-def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
-                      ray_ids: torch.Tensor, base_key,
-                      cfg: IntegratorConfig = IntegratorConfig()):
-    """Radiance for a batch of camera rays in lockstep, up to cfg.max_iters
-    iterations. Returns ((R, 3) radiance, int rays traced). The loop stops
-    early once every lane is dead: dead lanes change nothing."""
-    r = org.shape[0]
-    dev = org.device
-    step = make_bounce_step(scene, cfg, base_key, ray_ids)
-    state = (
+def init_state(org: torch.Tensor, dirn: torch.Tensor):
+    """The lockstep state of fresh camera rays: (org, dirn, radiance,
+    weight, depth, refract_cnt, refracted, alive)."""
+    r, dev = org.shape[0], org.device
+    return (
         org, dirn,
         torch.zeros((r, 3), device=dev),                   # radiance
         torch.ones((r, 3), device=dev),                    # weight
@@ -235,16 +247,36 @@ def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
         torch.zeros((r,), dtype=torch.int32, device=dev),  # refract count
         torch.zeros((r,), dtype=torch.bool, device=dev),   # sticky refraction flag
         torch.ones((r,), dtype=torch.bool, device=dev),    # alive
-        torch.zeros((), dtype=torch.int64, device=dev),    # rays traced
     )
+
+
+def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
+                      ray_ids: torch.Tensor, base_key,
+                      cfg: IntegratorConfig = IntegratorConfig(),
+                      raycast_fn=None, sample_mat_fn=None):
+    """Radiance for a batch of camera rays in lockstep, up to cfg.max_iters
+    iterations (every lane shares the global iteration counter). Returns
+    ((R, 3) radiance, int rays traced). The loop stops early once every
+    lane is dead: dead lanes change nothing. cfg.remat recomputes each
+    iteration in the backward instead of storing it (megakernel.py:356-357)."""
+    bounce = make_bounce_fn(scene, cfg, base_key, raycast_fn=raycast_fn,
+                            sample_mat_fn=sample_mat_fn)
+    state = init_state(org, dirn)
+    rays = torch.zeros((), dtype=torch.int64, device=org.device)
     for it in range(cfg.max_iters):
         if not bool(state[7].any()):
             break
-        state = step(state, it)
-    return state[2], int(state[8])
+        if cfg.remat:
+            *state, traced = checkpoint(bounce, *state, ray_ids, it, use_reentrant=False)
+        else:
+            *state, traced = bounce(*state, ray_ids, it)
+        rays = rays + traced
+    return state[2], int(rays)
 
 
 def trace_paths(scene: Scene, org, dirn, ray_ids, base_key,
-                cfg: IntegratorConfig = IntegratorConfig()) -> torch.Tensor:
+                cfg: IntegratorConfig = IntegratorConfig(),
+                raycast_fn=None, sample_mat_fn=None) -> torch.Tensor:
     """Radiance only; see trace_paths_stats."""
-    return trace_paths_stats(scene, org, dirn, ray_ids, base_key, cfg)[0]
+    return trace_paths_stats(scene, org, dirn, ray_ids, base_key, cfg, raycast_fn,
+                             sample_mat_fn)[0]

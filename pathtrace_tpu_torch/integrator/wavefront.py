@@ -18,7 +18,8 @@ lane traces it. Two assignments of paths to lanes, as in JAX:
   index_add_ (on CUDA its atomics add in no fixed order).
 
 Closest-hit and shadow rays go through megakernel.default_raycast, so a
-scene with KD cells takes the mesh path in both assignments.
+scene with KD cells takes the mesh path in both assignments, and any other
+scene the all-triangles search.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from pathtrace_tpu_torch.core.camera import Camera
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.megakernel import make_bounce_fn
 from pathtrace_tpu_torch.models.scene import Scene
-from pathtrace_tpu_torch.ops.kd_raycast import kd_closest
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
 
@@ -56,10 +56,13 @@ def _regen_rays(camera: Camera, path_idx: torch.Tensor, base_key, num_pix: int):
 
 def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                    cfg: IntegratorConfig, lanes: int, sample_offset: int = 0, *,
-                   search=kd_closest):
+                   search=None, raycast_fn=None, visible_fn=None, on_iteration=None):
     """((H, W, 3) mean image, int rays traced) over path ids
     [sample_offset*num_pix, (sample_offset+spp)*num_pix) on the scene's
-    device; `search` as in megakernel.default_raycast."""
+    device; `search`, `raycast_fn` and `visible_fn` as in
+    megakernel.make_bounce_fn. on_iteration(ray_ids, lane_iter, alive), if
+    given, runs after each bounce with the lanes' state before it (the
+    gradient recorder commits its tape there, diff/wavetape.py)."""
     num_pix = camera.width * camera.height
     if lanes <= 0:
         raise ValueError(f"lanes={lanes} must be positive")
@@ -69,7 +72,8 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     dev = scene.device
     base_path = sample_offset * num_pix
     total_paths = num_pix * spp
-    bounce = make_bounce_fn(scene, cfg, base_key, search=search)
+    bounce = make_bounce_fn(scene, cfg, base_key, search=search, raycast_fn=raycast_fn,
+                            visible_fn=visible_fn)
 
     film = torch.zeros((k_pix, lanes, 3) if static else (num_pix, 3), device=dev)
     lane = torch.arange(lanes, dtype=torch.int64, device=dev)
@@ -93,6 +97,8 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                                       refract_cnt, refracted, alive, ray_ids,
                                       lane_iter)
         rays = rays + traced
+        if on_iteration is not None:
+            on_iteration(ray_ids, lane_iter, alive)
 
         died = alive & ~alive_next
         contrib = torch.where(died[:, None], radiance, zero3)
@@ -143,7 +149,7 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
 def render_wavefront_stats(scene: Scene, camera: Camera, spp: int, base_key,
                            cfg: IntegratorConfig = IntegratorConfig(),
                            lanes: int = 65536, sample_offset: int = 0, *,
-                           device="cuda", search=kd_closest):
+                           device="cuda", search=None):
     """((H, W, 3) mean radiance, rays traced); `lanes` is the persistent
     wavefront width; `search` as in megakernel.default_raycast."""
     dev = resolve_device(device)

@@ -9,6 +9,7 @@ the host and moved with `Scene.to(device)`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -104,6 +105,12 @@ class Triangles:
     @property
     def e2(self) -> torch.Tensor:
         return self.v2 - self.v0
+
+    @functools.cached_property
+    def search_table(self) -> torch.Tensor:
+        """(T, 9) rows [v0 | e1 | e2], the all-triangles search's table
+        (ops/mt_closest.py), built once per Triangles."""
+        return torch.cat([self.v0, self.e1, self.e2], dim=1).contiguous()
 
     @property
     def geometric_normal(self) -> torch.Tensor:

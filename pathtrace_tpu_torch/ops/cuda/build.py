@@ -106,6 +106,17 @@ def build() -> str:
     return path
 
 
+def check_tensor(name: str, x, dtype, shape: tuple, dev) -> None:
+    """Raise unless x is a contiguous `dtype` tensor on `dev` whose shape
+    matches `shape` (None entries match any size): what a kernel wrapper
+    checks before it hands x's pointer to a launch."""
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {dev}, got "
+                         f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    if x.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, x.shape)):
+        raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
+
+
 def load_library() -> ctypes.CDLL:
     """The built library, compiled on first call in this process."""
     global _lib

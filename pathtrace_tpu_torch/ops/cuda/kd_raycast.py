@@ -30,16 +30,6 @@ MAX_SMEM_BYTES = 232448
 MAX_CELLS = MAX_SMEM_BYTES // CELL_SMEM_BYTES
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape: tuple, dev: torch.device):
-    """Raise unless x is a contiguous `dtype` tensor on `dev` whose shape
-    matches `shape` (None entries match any size)."""
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {dev}, got "
-                         f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
-    if x.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, x.shape)):
-        raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
-
-
 @functools.cache
 def _raycast_fn():
     """The library's launcher, after checking once per process that its
@@ -72,16 +62,16 @@ def launch(clusters, org, dirn, t_min, t_max, mode: str = "closest"):
     dev = org.device
     if dev.type != "cuda":
         raise ValueError(f"the KD kernel runs on CUDA tensors, got {dev}")
-    _check("org", org, torch.float32, (r, 3), dev)
-    _check("dirn", dirn, torch.float32, (r, 3), dev)
-    _check("t_min", t_min, torch.float32, (r,), dev)
-    _check("t_max", t_max, torch.float32, (r,), dev)
-    _check("bmin", clusters.bmin, torch.float32, (m, 3), dev)
-    _check("bmax", clusters.bmax, torch.float32, (m, 3), dev)
-    _check("prim_start", clusters.prim_start, torch.int32, (m,), dev)
-    _check("prim_count", clusters.prim_count, torch.int32, (m,), dev)
-    _check("members", clusters.members, torch.float32, (d, MEMBER_STRIDE), dev)
-    _check("dup_map", clusters.dup_map, torch.int32, (d,), dev)
+    build.check_tensor("org", org, torch.float32, (r, 3), dev)
+    build.check_tensor("dirn", dirn, torch.float32, (r, 3), dev)
+    build.check_tensor("t_min", t_min, torch.float32, (r,), dev)
+    build.check_tensor("t_max", t_max, torch.float32, (r,), dev)
+    build.check_tensor("bmin", clusters.bmin, torch.float32, (m, 3), dev)
+    build.check_tensor("bmax", clusters.bmax, torch.float32, (m, 3), dev)
+    build.check_tensor("prim_start", clusters.prim_start, torch.int32, (m,), dev)
+    build.check_tensor("prim_count", clusters.prim_count, torch.int32, (m,), dev)
+    build.check_tensor("members", clusters.members, torch.float32, (d, MEMBER_STRIDE), dev)
+    build.check_tensor("dup_map", clusters.dup_map, torch.int32, (d,), dev)
     with torch.cuda.device(dev):
         hit = torch.empty((r,), dtype=torch.bool, device=dev)
         t, u, v = (torch.empty((r,), device=dev) for _ in range(3))

@@ -145,7 +145,9 @@ def _closest_sphere(scene: Scene, org, dirn, t_min, cur_max):
 def mt_gather(tris, pid: torch.Tensor, org, dirn, t_min, t_max):
     """Möller-Trumbore against one gathered triangle per lane (pid in
     range): (t, u, v, valid) with the backface cull and normalized
-    barycentrics."""
+    barycentrics. The winner's differentiable recompute: 1/det is taken of
+    a det that is never 0, so a lane whose det is 0 gets a zero gradient,
+    not 0 * inf; the values equal intersect_tris_all's bit for bit."""
     pid = pid.long()
     v0 = tris.v0[pid]
     e1 = tris.v1[pid] - v0
@@ -154,7 +156,8 @@ def mt_gather(tris, pid: torch.Tensor, org, dirn, t_min, t_max):
     p = math3.cross(dirn, e2)
     q = math3.cross(tvec, e1)
     det = math3.dot(p, e1)
-    inv_det = torch.where(torch.abs(det) > math3.TINY, 1.0 / det,
+    big = torch.abs(det) > math3.TINY
+    inv_det = torch.where(big, 1.0 / torch.where(big, det, torch.ones_like(det)),
                           torch.zeros_like(det))
     t = math3.dot(q, e2) * inv_det
     u = math3.dot(p, tvec)
@@ -212,6 +215,28 @@ def finalize_hit(scene: Scene, org, dirn, t_min, t_max,
         tangent=pick(stt, tt), bitangent=pick(sb, tb), front_face=pick(sf, tf),
         uv=pick(suv, tuv), prim_id=torch.where(use_sphere, sph_idx, tri_idx),
         is_sphere=use_sphere, mat=mat)
+
+
+def detached_rows(*xs: torch.Tensor):
+    """The search's inputs: detached (the winner is a discrete choice) and
+    contiguous (the kernels take dense rows; camera origins arrive
+    broadcast)."""
+    return tuple(x.detach().contiguous() for x in xs)
+
+
+def finalize_hit_at(scene: Scene, org, dirn, t_min, t_max,
+                    tri_hit, best_t, tri_idx, tri_u, tri_v) -> HitRecord:
+    """finalize_hit after a detached search: (t, u, v) are recomputed
+    differentiably at the chosen triangle with mt_gather (raycast_matmul,
+    mt_matmul.py:184-204), so gradients flow through org and dirn as they do
+    through raycast_brute's all-pairs test; the values are the search's."""
+    t2, u2, v2, _ = mt_gather(scene.tris, tri_idx, org, dirn, t_min,
+                              torch.full_like(t_max, BIG_T))
+    best_t = torch.where(tri_hit, t2, best_t)
+    tri_u = torch.where(tri_hit, u2, tri_u)
+    tri_v = torch.where(tri_hit, v2, tri_v)
+    return finalize_hit(scene, org, dirn, t_min, t_max, tri_hit, best_t, tri_idx,
+                        tri_u, tri_v)
 
 
 def _closest_tri(scene: Scene, org, dirn, t_min, t_max):

@@ -34,8 +34,8 @@ from pathtrace_tpu_torch.core.camera import Camera
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
 from pathtrace_tpu_torch.ops.intersect import (BIG_T, HitRecord, closest_masked,
-                                               finalize_hit, finalize_shadow,
-                                               intersect_tris_all)
+                                               detached_rows, finalize_hit_at,
+                                               finalize_shadow, intersect_tris_all)
 from pathtrace_tpu_torch.utils.math3 import EPS
 
 MODES = ("closest", "shadow")
@@ -103,25 +103,25 @@ def kd_closest(clusters: ClusterArrays, org, dirn, t_min, t_max, mode: str = "cl
 def raycast_kd(scene: Scene, org, dirn, t_min=None, t_max=None, *,
                search=kd_closest) -> HitRecord:
     """Closest hit through the KD cells, merged with the sphere scan and
-    shaded by finalize_hit (raycast_binned_v3, binned.py:804-837). `search`
-    is the cell search (kd_closest; kd_closest_plain to hold the kernel
-    against its plain version on the card)."""
+    shaded by finalize_hit_at (raycast_binned_v3, binned.py:804-837): the
+    search runs detached, (t, u, v) are recomputed differentiably at the
+    winner. `search` is the cell search (kd_closest; kd_closest_plain to
+    hold the kernel against its plain version on the card)."""
     r = org.shape[0]
     if t_min is None:
         t_min = torch.zeros((r,), device=org.device)
     if t_max is None:
         t_max = torch.full((r,), BIG_T, device=org.device)
-    # the kernel takes contiguous rows; camera origins arrive broadcast
-    org, dirn, t_min, t_max = (x.contiguous() for x in (org, dirn, t_min, t_max))
-    hit, t, u, v, pid = search(scene.clusters, org, dirn, t_min, t_max, "closest")
-    return finalize_hit(scene, org, dirn, t_min, t_max, hit, t, pid, u, v)
+    hit, t, u, v, pid = search(scene.clusters, *detached_rows(org, dirn, t_min, t_max),
+                               "closest")
+    return finalize_hit_at(scene, org, dirn, t_min, t_max, hit, t, pid, u, v)
 
 
 def shadow_kd(scene: Scene, org, dirn, t_min, t_max, *, search=kd_closest):
     """(hit, prim_id, is_sphere) of NEE shadow rays through the KD cells
     (shadow_binned_v3, binned.py:840-863), merged with the spheres as
     shadow_brute does (finalize_shadow)."""
-    org, dirn, t_min, t_max = (x.contiguous() for x in (org, dirn, t_min, t_max))
+    org, dirn, t_min, t_max = detached_rows(org, dirn, t_min, t_max)
     hit, t, _, _, pid = search(scene.clusters, org, dirn, t_min, t_max, "shadow")
     return finalize_shadow(scene, org, dirn, t_min, t_max, hit, t, pid)
 

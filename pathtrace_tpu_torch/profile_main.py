@@ -2,6 +2,7 @@
 
     python -m pathtrace_tpu_torch.profile_main
     PROFILE_SCENE=mesh python -m pathtrace_tpu_torch.profile_main
+    PROFILE_SCENE=train python -m pathtrace_tpu_torch.profile_main
 
 Renders the job once to warm up, once timed, and once under
 torch.profiler, and prints ONE JSON line: wall ms of the timed render and
@@ -21,6 +22,9 @@ the job:
   at 8 spp, one chunk. The eager wavefront launches thousands of small
   kernels per iteration; a trace of the bench's 64 spp takes the profiler
   many minutes to process.
+- train: `BENCH_SCENE=train`'s step (Cornell + spheres 128x128, recording
+  sweep through the all-triangles kernel, chunked replay backward) at
+  PROFILE_SPP spp (default 8; the bench runs 64), for the same reason.
 """
 
 from __future__ import annotations
@@ -48,7 +52,18 @@ def main() -> None:
     key = rng.iter_key(rng.make_key(0), 1000)
     cfg = IntegratorConfig()
     which = os.environ.get("PROFILE_SCENE", "cornell")
-    if which == "mesh":
+    if which == "train":
+        spp = int(os.environ.get("PROFILE_SPP", 8))
+        job = (f"train step cornell+spheres 128x128@{spp}spp lanes {bench.TRAIN_LANES} "
+               f"chunk {bench.TRAIN_CHUNK}")
+        camera = procedural.default_camera(128, 128)
+        step = bench.make_train_step(dev)
+
+        def run(n):  # (image, rays): the step counts no rays
+            loss, grads, img = step(n)
+            bench.check_train_output(loss, grads, img)
+            return img, None
+    elif which == "mesh":
         scene = procedural.blob_mesh_scene().with_kd_binned(max_tris=1024).to(dev)
         spp, job = 8, f"blob82k 256x256@8spp wavefront-kd lanes {bench.MESH_LANES}"
 
@@ -64,9 +79,9 @@ def main() -> None:
                                              lanes=bk.auto_fused_config(256 * 256),
                                              chunk_spp=min(n, 256), device=dev)
     else:
-        raise ValueError(f"PROFILE_SCENE={which!r}: cornell or mesh")
+        raise ValueError(f"PROFILE_SCENE={which!r}: cornell, mesh or train")
 
-    run(4)  # warm-up: builds the kernel library and launches it once
+    run(1 if which == "train" else 4)  # warm-up: builds the kernel library, launches it
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run(spp)
@@ -79,6 +94,7 @@ def main() -> None:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     if not bool(torch.isfinite(img).all()):
         raise RuntimeError("non-finite pixels in the profiled image")
+    num_paths = camera.width * camera.height * spp
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
@@ -93,10 +109,14 @@ def main() -> None:
         "device_idle_share": 1 - busy_ms / wall_ms,
         "profiled_idle_share": 1 - busy_ms / prof_wall_ms,
         "device_launches": sum(e.count for e in kernels),
-        "paths_per_sec": 256 * 256 * spp / wall_ms * 1e3,
-        "rays_per_path": rays / (256 * 256 * spp),
+        "paths_per_sec": num_paths / wall_ms * 1e3,
+        "rays_per_path": None if rays is None else rays / num_paths,
         "top_kernels": [{"name": e.key, "device_ms": e.self_device_time_total / 1e3,
                          "launches": e.count} for e in kernels[:6]],
+        "port_kernels": [{"name": e.key, "device_ms": e.self_device_time_total / 1e3,
+                          "launches": e.count,
+                          "busy_share": e.self_device_time_total / 1e3 / busy_ms}
+                         for e in kernels if e.key.startswith("pt::")],
         "card": bench.nvidia_smi_line(),
     }))
 

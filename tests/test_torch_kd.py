@@ -277,10 +277,15 @@ def test_engines_kd_match_jax_render(engine_images):
 
 
 def test_default_raycast_routes_by_scene(scenes):
+    """KD scenes take the KD search, any other scene the all-triangles
+    search (ops/mt_closest.py); `search` replaces the route's search."""
+    from pathtrace_tpu_torch.ops import mt_closest as mt
     kd_scene = scenes[False]
     brute_scene = dataclasses.replace(kd_scene, clusters=None)
-    assert megakernel.default_raycast(brute_scene) is raycast_brute
-    assert megakernel.default_shadow_raycast(brute_scene) is shadow_brute
+    route = megakernel.default_raycast(brute_scene)
+    assert route.func is mt.raycast_mt and route.keywords["search"] is mt.mt_closest
+    route = megakernel.default_shadow_raycast(brute_scene, mt.mt_closest_plain)
+    assert route.func is mt.shadow_mt and route.keywords["search"] is mt.mt_closest_plain
     route = megakernel.default_raycast(kd_scene)
     assert route.func is kd.raycast_kd and route.keywords["search"] is kd.kd_closest
     route = megakernel.default_shadow_raycast(kd_scene, kd.kd_closest_plain)

@@ -24,6 +24,14 @@ and prim_id agree on >= 99.99% of rays, t/u/v within 1e-6 relative where
 both hit the same triangle. The wavefront through the kernel against the
 wavefront through the plain search: > 99% of pixels within 1e-3, rays
 within 1e-5.
+
+The all-triangles kernel (csrc/mt_closest.cu) against mt_closest_plain, in
+both modes, on random rays (Cornell + spheres, 38 triangles) and on the
+1,294-triangle sphere_mesh_scene(3), whose table spans two shared-memory
+tiles: the same float32 operations in the same order with the same tie
+rule, so hit and idx are bit-equal, and t/u/v bit-equal where hit. The
+fused kernel's reference wavefront takes the plain search too, so it runs
+no kernel.
 """
 
 import pytest
@@ -33,8 +41,10 @@ from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
 from pathtrace_tpu_torch.models import procedural
 from pathtrace_tpu_torch.ops import kd_raycast as kd
+from pathtrace_tpu_torch.ops import mt_closest as mt
 from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
 from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
+from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
 from pathtrace_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.gpu
@@ -69,7 +79,8 @@ def test_kernel_matches_plain(cuda, scene_name, nee, spp, tol, pix_bar, mean_bar
                                           chunk_spp=spp, device=cuda)
     torch.cuda.synchronize()
     assert bk.LAUNCHES == launches + 1
-    b, rays_b = render_wavefront_stats(scene, cam, spp, key, cfg, lanes=1024, device=cuda)
+    b, rays_b = render_wavefront_stats(scene, cam, spp, key, cfg, lanes=1024, device=cuda,
+                                       search=mt.mt_closest_plain)
     a, b = a.cpu(), b.cpu()
     assert torch.isclose(a, b, rtol=tol, atol=tol).float().mean().item() > pix_bar
     assert abs(a.mean().item() - b.mean().item()) / b.mean().item() < mean_bar
@@ -83,7 +94,8 @@ def test_kernel_lane_layouts(cuda, lanes):
     cam = procedural.default_camera(32, 32)
     key = rng.make_key(2)
     a, ra = bk.render_wavefront_fused(scene, cam, 4, key, lanes=lanes, device=cuda)
-    b, rb = render_wavefront_stats(scene, cam, 4, key, lanes=lanes, device=cuda)
+    b, rb = render_wavefront_stats(scene, cam, 4, key, lanes=lanes, device=cuda,
+                                   search=mt.mt_closest_plain)
     assert torch.isclose(a, b, rtol=1e-4, atol=1e-4).float().mean().item() > 0.99
     assert ra == pytest.approx(rb, rel=1e-3)
 
@@ -147,3 +159,51 @@ def test_kd_kernel_wavefront_matches_plain(cuda):
     assert kd_kernel.LAUNCHES == after_kernel  # the plain search launches nothing
     assert torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item() > 0.99
     assert rays_a == pytest.approx(rays_b, rel=1e-5)
+
+
+MT_SCENES = {
+    "spheres": lambda: procedural.cornell_box_scene(include_spheres=True),
+    "sphere_mesh3": lambda: procedural.sphere_mesh_scene(3),  # 1,294 triangles, two tiles
+}
+
+
+@pytest.mark.parametrize("scene_name", sorted(MT_SCENES))
+@pytest.mark.parametrize("mode", mt.MODES)
+def test_mt_kernel_matches_plain(cuda, scene_name, mode):
+    scene = MT_SCENES[scene_name]().to(cuda)
+    g = torch.Generator().manual_seed(6)
+    n = 5000  # not a multiple of the block: the last block has idle threads
+    org = (torch.rand((n, 3), generator=g) * 70.0 - 25.0).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(cuda)
+    t_min = torch.zeros((n,), device=cuda)
+    t_max = (torch.rand((n,), generator=g) * 80.0).to(cuda)
+    rays = kd.probe_rays(scene, procedural.default_camera(64, 64), 4096, seed=3)
+    rays["random"] = (org, d, t_min, t_max)
+    for name, args in rays.items():
+        launches = mt_kernel.LAUNCHES
+        k_hit, *k = mt.mt_closest(scene.tris, *args, mode)
+        torch.cuda.synchronize()
+        assert mt_kernel.LAUNCHES == launches + 1
+        p_hit, *p = mt.mt_closest_plain(scene.tris, *args, mode)
+        assert torch.equal(k_hit, p_hit), name
+        assert p_hit.float().mean().item() > 0.1, name
+        for a, b in zip(k, p):
+            assert torch.equal(a[p_hit], b[p_hit]), name
+        if mode == "shadow":
+            assert not bool(k[2].any()) and not bool(k[3].any())
+
+
+def test_mt_kernel_train_step_matches_plain(cuda):
+    """The train step through the kernel and through the plain search: the
+    same tapes, so the same loss and grads."""
+    from pathtrace_tpu_torch.bench import make_train_step
+    from pathtrace_tpu_torch.diff.grad import MAT_FIELDS
+
+    launches = mt_kernel.LAUNCHES
+    a = make_train_step(cuda, 16, 16, 256, 256)(2)
+    assert mt_kernel.LAUNCHES > launches
+    b = make_train_step(cuda, 16, 16, 256, 256, search=mt.mt_closest_plain)(2)
+    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=0)
+    for ga, gb in zip(a[1], b[1]):
+        for f in MAT_FIELDS:
+            torch.testing.assert_close(getattr(ga, f), getattr(gb, f), rtol=1e-5, atol=1e-7)

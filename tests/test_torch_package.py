@@ -1,6 +1,9 @@
 """Package-level contracts of the PyTorch port (no GPU, no nvcc needed).
 
-- No module of pathtrace_tpu_torch imports jax or the JAX package.
+- No module of pathtrace_tpu_torch, and not chip_smoke.py, imports jax or
+  the JAX package.
+- chip_smoke.py without a GPU, alone in a directory, exits non-zero and
+  prints no result.
 - The package imports without nvcc, triton or a GPU, and building the
   CUDA library never happens at import.
 - The nvcc commands target sm_90a, keep IEEE rounding (-fmad=false, no
@@ -26,7 +29,7 @@ from pathtrace_tpu_torch.utils import rng
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "pathtrace_tpu_torch"
-MODULES = sorted(PKG.rglob("*.py"))
+MODULES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(REPO)))
@@ -74,7 +77,8 @@ print(len(names))
 def test_nvcc_command_flags():
     """One compile command per csrc/*.cu (run concurrently), one link."""
     srcs = build.sources()
-    assert {pathlib.Path(s).name for s in srcs} == {"bounce_kernel.cu", "kd_raycast.cu"}
+    assert {pathlib.Path(s).name for s in srcs} == {"bounce_kernel.cu", "kd_raycast.cu",
+                                                   "mt_closest.cu"}
     assert all(pathlib.Path(s).parent == PKG / "csrc" for s in srcs)
     for src in srcs:
         cmd = build.compile_command("nvcc", src, "/x/a.o")
@@ -192,3 +196,11 @@ def test_auto_fused_config_tiles_the_film(num_pix):
     lanes = bk.auto_fused_config(num_pix)
     assert lanes % num_pix == 0 or num_pix % lanes == 0
     assert lanes <= max(65536, num_pix)
+
+
+def test_chip_smoke_without_gpu_prints_no_result(tmp_path):
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == ""
