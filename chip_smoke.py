@@ -15,13 +15,16 @@ benchmarks). Phases, one line each (or one per comparison):
      fails unless the card is compute capability 9.0 (Hopper);
   2. build: compiles csrc/*.cu with nvcc (seconds);
   3. kernel vs its plain PyTorch version on the card, at the JAX package's
-     bars between its engines (tests/test_fused.py);
+     bars between its engines (tests/test_fused.py), and bit-equal (image
+     and rays);
   4. main path: the 256^2 @ 1024 spp render on the kernel (launch count,
      finite image, rays per path, mean within 2% of the plain version at
      32 spp, seconds, paths/s, rays/s); the kernel against its plain version
-     at the main path's scene, film and lanes at 32 spp (times; > 99% of
-     pixels within 1e-3, ray counts within 1e-5); then the CLI once as a
-     subprocess;
+     at the main path's scene, film and lanes at 32 spp (times; bit-equal
+     image and rays); from that plain run, each path's iterations and the
+     useful warp-iteration share of the nested and the in-place schedule
+     (profile_main.schedule_share), beside the kernel's registers, spills and
+     resident blocks per SM; then the CLI once as a subprocess;
   5. the mesh path: blob82k (the 82k-triangle OBJ asset in the Cornell
      room, KD cells of 1024) through the wavefront engine and the KD
      raycast kernel. First the kernel against its plain version on 65,536
@@ -86,14 +89,39 @@ HBM_RATE = 3.35e12  # bytes/s
 # and u + v where 0 <= u <= det (15); 1/det and t where v >= 0 and
 # u + v <= det (7) (mt_pair_ops counts them from a run's rays). One sphere
 # test (intersect_spheres_all), one ray-cell slab test (two corner
-# subtractions and products, 12). SHADE_OPS is an estimate, not a count
-# operation by operation: a rough hand count of one bounce's shading of a
-# gltfpbr surface (csrc/bsdf.cuh; the room's walls) with special functions
-# at 1 each: sample ~80, eval ~174 twice (the bounce's and NEE's), pdf ~94,
-# the light sample ~70, the hit frame ~65, weight, RR and next ray ~40.
-# Integer work (Philox) is not counted, so the bound stays a least time.
+# subtractions and products, 12). Integer work (Philox) is not counted, so
+# the bound stays a least time.
 MT_STAGE_OPS = (14, 8, 15, 7)
-SPHERE_OPS, SLAB_OPS, SHADE_OPS = 28, 12, 700
+SPHERE_OPS, SLAB_OPS = 28, 12
+# One bounce's shading of a gltfpbr surface (the room's walls), counted by
+# hand from csrc/bsdf.cuh and csrc/bounce_kernel.cu function by function:
+# + - * / and sqrt count 1, and so does each special function (powf, sinf,
+# cosf, atanf); comparisons, selects, min, max and abs count 0; a value a
+# function computes twice counts once (dot(n, wi) in eval_gltfpbr). Parts:
+# dot 5, cross 9, normalize 10, lerp 10, fresnel_schlick 21 (16 when it
+# shares its sqlen test), microfacet_distribution 13, microfacet_shadowing
+# 41 (31 when it shares the eval's two dots). The sample is the diffuse
+# branch, which the walls take for all but their small Fresnel share.
+# SHADE_PARTS is charged to every shaded hit; NEE_VISIBLE_PARTS, NEE's BSDF
+# term, only to a hit whose shadow ray reaches the sampled light: the
+# kernel's nee() returns before it otherwise.
+SHADE_PARTS = {
+    "hit frame (barycentric interpolation, three normalizes, hit point)": 90,
+    "emission test": 5,
+    "NEE light sample": 41,
+    "sample_gltfpbr (Fresnel mean 34, cosine hemisphere 34)": 68,
+    "eval_gltfpbr": 147,
+    "pdf_gltfpbr": 84,
+    "dead-sample test": 5,
+    "weight, next ray, Russian roulette": 25,
+}
+NEE_VISIBLE_PARTS = {
+    "cos_a and pdf": 20,
+    "eval_gltfpbr": 147,
+    "contribution": 16,
+}
+SHADE_OPS = sum(SHADE_PARTS.values())  # 465
+NEE_VISIBLE_OPS = sum(NEE_VISIBLE_PARTS.values())  # 183
 RAY_BYTES = 32      # org, dir, t_min, t_max: float32
 HIT_BYTES = 17      # hit (1), t, u, v, idx (4 each)
 
@@ -354,48 +382,6 @@ def mesh_phase(smi: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def main_path_needs(scene, cam, key, cfg, lanes) -> tuple[float, int, int]:
-    """(MT operations, shaded hits, rays) that the main path's rays at 32
-    spp need: the wavefront on the fused kernel's scene, film, lanes and
-    draws through the plain search, each closest ray of a live lane and each
-    shadow ray of a live hit charged mt_pair_ops against every triangle."""
-    import torch
-
-    from pathtrace_tpu_torch.integrator.megakernel import (default_raycast,
-                                                           default_shadow_raycast,
-                                                           shadow_visibility)
-    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront
-    from pathtrace_tpu_torch.ops import mt_closest as mt
-
-    table = scene.tris.search_table
-    raycast = default_raycast(scene, mt.mt_closest_plain)
-    visible = shadow_visibility(default_shadow_raycast(scene, mt.mt_closest_plain))
-    step, total = {}, {"ops": 0.0, "hits": 0}
-
-    def counted_raycast(sc, org, dirn, t_min, t_max):
-        hit = raycast(sc, org, dirn, t_min, t_max)
-        step["closest"], step["hit"] = mt_pair_ops(table, org, dirn), hit.hit
-        return hit
-
-    def counted_visible(sc, org, dirn, t_min, t_max, light_tri):
-        step["shadow"] = mt_pair_ops(table, org, dirn)
-        return visible(sc, org, dirn, t_min, t_max, light_tri)
-
-    def on_iteration(ray_ids, lane_iter, alive):
-        live_hit = alive & step["hit"]
-        ops = torch.where(alive, step["closest"], 0.0).sum()
-        if "shadow" in step:
-            ops = ops + torch.where(live_hit, step["shadow"], 0.0).sum()
-        total["ops"] += ops.item()
-        total["hits"] += int(live_hit.sum())
-        step.clear()
-
-    with torch.no_grad():
-        _, rays = _run_wavefront(scene, cam, 32, key, cfg, lanes, raycast_fn=counted_raycast,
-                                 visible_fn=counted_visible, on_iteration=on_iteration)
-    return total["ops"], total["hits"], rays
-
-
 def mt_compare(scene, sets: dict, tag: str) -> dict:
     """[6 mt compare]: the all-triangles kernel against its plain version on
     the card, both modes: hit and idx bit-equal, t/u/v bit-equal where hit.
@@ -558,6 +544,7 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import mt_closest as mt
     from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
     from pathtrace_tpu_torch.ops.cuda import build
+    from pathtrace_tpu_torch.profile_main import schedule_share
     from pathtrace_tpu_torch.utils import rng
 
     # 1. environment
@@ -604,6 +591,8 @@ def main() -> int:
             ok = agree > 0.99 and mean_rel < 2e-3 and rays_rel < 1e-3
         else:
             ok = agree > 0.5 and mean_rel < 0.02 and rays_rel < 0.02
+        # and bit for bit: the same draws, winners and roundings, the same sums
+        ok = ok and err == 0.0 and rays_a == rays_b
         if not ok:
             fail(f"kernel disagrees with its plain version (spheres={spheres})")
 
@@ -633,10 +622,9 @@ def main() -> int:
 
     # kernel and plain version at the main path's scene, film and lanes, at
     # 32 spp (the plain version is too slow for 1024): times, per-pixel
-    # agreement, ray counts, means. Both sides draw the same Philox streams
-    # and round alike (-fmad=false, IEEE division), so only a rare last-ulp
-    # fork of a sphere path may differ: > 99% of pixels within 1e-3, rays
-    # within 1e-5.
+    # agreement, ray counts, means. Both sides draw the same Philox streams,
+    # round alike (-fmad=false, IEEE division) and sum each film slot in the
+    # same path order, so the images are bit-equal and the rays equal.
     (k_img, k_rays), k_ms = timed(lambda: bk.render_wavefront_fused(
         scene, cam, 32, pass_key, cfg, lanes=lanes, chunk_spp=32, device="cuda"))
     (p_img, p_rays), p_ms = timed(lambda: render_wavefront_stats(
@@ -654,20 +642,43 @@ def main() -> int:
           f"kernel@32 {k32_rel:.3e}; on {smi}", flush=True)
     if main_rel > 0.02 or k32_rel > 0.02:
         fail("main-path image mean is not within 2% of the plain version's")
-    if agree <= 0.99 or rays_rel > 1e-5:
-        fail("kernel disagrees with its plain version at the main path's shape")
+    if agree <= 0.99 or rays_rel > 1e-5 or max_abs_err != 0.0 or k_rays != p_rays:
+        fail("kernel is not bit-equal to its plain version at the main path's shape")
     # its least time at 32 spp: the MT stages that the traced rays need
-    # against every triangle, every sphere test, one shading per hit; bytes:
-    # the scene once, the film once
-    mt_ops, hits, c_rays = main_path_needs(scene, cam, pass_key, cfg, lanes)
-    b1_ops = mt_ops + k_rays * scene.num_spheres * SPHERE_OPS + hits * SHADE_OPS
+    # against every triangle, every sphere test, one shading per hit and
+    # NEE's BSDF term per shadow ray that reached the light; bytes: the scene
+    # once, the film once. The count runs the plain wavefront again on the
+    # same paths (profile_main.schedule_share).
+    table = scene.tris.search_table
+    need = schedule_share(scene, cam, 32, pass_key, cfg, lanes, search=mt.mt_closest_plain,
+                          pair_ops=lambda org, dirn: mt_pair_ops(table, org, dirn))
+    mt_ops, hits, c_rays, iters = need["mt_ops"], need["hits"], need["rays"], need["iters"]
+    b1_ops = (mt_ops + k_rays * scene.num_spheres * SPHERE_OPS + hits * SHADE_OPS
+              + need["visible"] * NEE_VISIBLE_OPS)
     b1_ms, b1_by = bound(b1_ops, tensor_bytes(scene) + k_img.numel() * 4)
     print(f"[4 main] bound at 32spp: {mt_ops:.4e} MT operations needed over {c_rays} rays "
-          f"({mt_ops / (c_rays * scene.num_tris):.2f} a pair), {hits} shaded hits; "
-          f"{b1_ops:.4e} FP32 operations, {b1_ms:.3f} ms ({b1_by}); the kernel takes "
-          f"{k_ms / b1_ms:.1f}x its bound", flush=True)
-    if c_rays != p_rays:
-        fail(f"the bound's count saw {c_rays} rays, the plain version traced {p_rays}")
+          f"({mt_ops / (c_rays * scene.num_tris):.2f} a pair), {hits} shaded hits, "
+          f"{need['visible']} of their shadow rays reached the light; {b1_ops:.4e} FP32 "
+          f"operations, {b1_ms:.3f} ms ({b1_by}); the kernel takes {k_ms / b1_ms:.1f}x its "
+          f"bound", flush=True)
+    if c_rays != p_rays or not torch.equal(need["image"], p_img.float()):
+        fail(f"the bound's count saw {c_rays} rays, the plain version traced {p_rays}, or "
+             f"its image differs")
+    chunk_ms, chunk_bound = ms / launches, b1_ms * min(spp, 256) / 32
+    print(f"[4 main] per launch of {min(spp, 256)} spp on the main path: {chunk_ms:.3f} ms; bound "
+          f"{chunk_bound:.3f} ms (the 32 spp count scaled by {min(spp, 256) // 32}), "
+          f"{chunk_ms / chunk_bound:.1f}x its bound", flush=True)
+    if int(iters.sum()) + need["nee_rays"] != p_rays:
+        fail("the paths' iterations and the NEE rays do not add up to the plain version's rays")
+    nested, in_place = need["nested"], need["in_place"]
+    occ = bk.occupancy(bk.build_fused_pack(scene))
+    print(f"[4 main] schedule at 32spp lanes {lanes}: {iters.numel()} paths, mean "
+          f"{iters.double().mean().item():.4f} iterations, longest {int(iters.max())}; useful "
+          f"warp-iteration share nested {nested:.4f}, in place {in_place:.4f}; kernel "
+          f"{occ['registers']} registers, {occ['local_bytes']} B local memory (stack frame "
+          f"and spills) a thread, {occ['blocks_per_sm']} resident blocks of {occ['block']} ("
+          f"{occ['warps_per_sm']} warps) per SM on {occ['sms']} SMs: one wave holds "
+          f"{occ['wave_lanes']} lanes, {lanes / occ['wave_lanes']:.3f} waves", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         run_cli(["--preset", "cornell64", "--engine", "fused"],

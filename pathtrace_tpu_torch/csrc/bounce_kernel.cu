@@ -3,9 +3,9 @@
 // Replaces the Pallas kernel pathtrace_tpu/ops/pallas/bounce_kernel.py::
 // _bounce_kernel (launched by fused_bounce_step, driven by _run_fused). It
 // computes what _run_fused computes: lane i traces path ids base + i,
-// base + i + lanes, ... below base + total, each path to completion with
-// its Philox stream keyed by (path id, path-local iteration), adds the
-// path's radiance to its film slot, and counts the rays it traced.
+// base + i + lanes, ... below base + total, each with its Philox stream
+// keyed by (path id, path-local iteration), adds each path's radiance to
+// its film slot, and counts the rays it traced.
 //
 // Semantics are those of the plain version, the static strided wavefront
 // of pathtrace_tpu_torch/integrator/wavefront.py over the brute raycast and
@@ -25,15 +25,30 @@
 // the (lanes / num_pix) slots of each pixel. No atomics: every slot is
 // written by one thread, in path order, exactly as the plain version sums.
 //
-// What bounds it on this card: divergent FP32 ALU work and registers, not
-// bytes. Each bounce runs two brute searches over the triangle table and one
-// of four BSDF lobes, and per-thread state stays in registers for the whole
-// path, so device-memory traffic is a few bytes per path. The design keeps
-// the triangle search table (v0, e1, e2), the spheres and the lights in
-// shared memory, read by all threads of a warp at the same address
-// (broadcast), and fetches per-triangle shading rows from global memory only
-// at the winner. Divergence between lanes at different path depths and
-// lobes is not addressed yet.
+// What bounds it on this card: divergent FP32 ALU work, warp convergence
+// and latency, not bytes. Each bounce runs two brute searches over the
+// triangle table and one of four BSDF lobes; device-memory traffic is a few
+// bytes per path. The design:
+// - the triangle search table (v0, e1, e2), the spheres and the lights sit
+//   in shared memory, read by a warp's threads at one address (broadcast);
+//   per-triangle shading rows are read from global memory at the winner;
+// - each lane runs ONE loop over bounce iterations and regenerates its
+//   path in place: when a path ends, the lane commits it, takes its next
+//   strided path id and starts that camera ray in the next iteration, as
+//   the plain version (wavefront.py::_run_wavefront) and the TPU kernel
+//   (bounce_kernel.py:762-809) do. The loop leaves only through its
+//   condition, so the lanes of a warp meet again at the end of every
+//   iteration and run the next scans together (PERF.md: 2x faster than a
+//   nested loop that traced each path to its end, and than an in-place
+//   loop that left through a `break`);
+// - both scans split the Moller-Trumbore test (mt.cuh): stages 1-3 with no
+//   division and no branch for every pair, the IEEE 1/det and t only for
+//   the pairs that pass the backface cull and the barycentric tests;
+// - 128 threads a block and no register cap: 65,536 lanes are 512 blocks,
+//   four per SM at 108 registers. A cap at 64 or 80 registers (so that
+//   131,072 lanes fit one wave) spilled and measured no faster, nor did
+//   computing NEE's BSDF term before its shadow scan or deciding the
+//   shadow ray at the light triangle first (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no fast math: IEEE division, sqrt and denormals), so the
@@ -100,14 +115,16 @@ struct TriHit {
 };
 
 // Closest triangle over the whole shared-memory table (intersect_tris_all +
-// closest_masked): strict '<' keeps the lowest index on ties.
+// closest_masked): strict '<' keeps the lowest index on ties. Each pair runs
+// mt_inside, whose branch-free tests overlap from triangle to triangle, and
+// mt_hit only where it passes.
 __device__ __forceinline__ TriHit closest_tri(const float* geo, int num_tris, V3 org, V3 dir,
                                               float tmin, float tmax) {
   TriHit best{INFINITY, 0.0f, 0.0f, 0, false};
   for (int j = 0; j < num_tris; ++j) {
     const float* g = geo + j * GEO_STRIDE;
-    MtHit h = mt_intersect(org, dir, ld3(g), ld3(g + 3), ld3(g + 6), tmin, tmax);
-    if (h.valid && h.t < best.t) {
+    MtHit h;
+    if (mt_inside(org, dir, g) && mt_hit(org, dir, g, tmin, tmax, best.t, &h)) {
       best.t = h.t;
       best.idx = j;
       best.u = h.u * h.inv_det;
@@ -236,13 +253,9 @@ __device__ __forceinline__ V3 nee(const float* geo, const float* __restrict__ at
   return finite3(contrib) ? contrib : zero3();  // NaN skip (CudaUtil.cuh:271)
 }
 
-// One camera path to completion (make_bounce_fn iterated from lane_iter 0,
-// with _regen_rays for the camera ray). Returns its radiance.
-__device__ V3 trace_path(const float* geo, const float* __restrict__ attr, const float* sph,
-                         const float* lights, const PtParams& P, long long path_id,
-                         long long* rays) {
-  uint32_t rid = (uint32_t)path_id;
-  uint32_t jc[4] = {rid, 0u, 0u, STREAM_JITTER};
+// The camera ray of a path (wavefront._regen_rays).
+__device__ __forceinline__ void camera_ray(const PtParams& P, long long path_id, V3* org, V3* dir) {
+  uint32_t jc[4] = {(uint32_t)path_id, 0u, 0u, STREAM_JITTER};
   philox(jc, P.key0, P.key1);
   long long pixel = path_id % P.num_pix;
   float px = (float)(pixel % P.width);
@@ -251,59 +264,19 @@ __device__ V3 trace_path(const float* geo, const float* __restrict__ attr, const
   float sy = 2.0f * ((py + u01(jc[1])) / (float)(P.height - 1) - 0.5f);
   float ax = sx * P.tan_x, ay = sy * P.tan_y;
   V3 d = ld3(P.cam_forward) + ax * ld3(P.cam_right) - ay * ld3(P.cam_up);
-  V3 dir = normalize(d);
-  V3 org = ld3(P.cam_pos);
+  *dir = normalize(d);
+  *org = ld3(P.cam_pos);
+}
 
-  V3 radiance = zero3();
-  V3 weight = v3(1.0f, 1.0f, 1.0f);
-  int depth = 0, refract_cnt = 0;
-  bool refracted = false;
-  for (uint32_t it = 0;; ++it) {
-    float u[8];
+// The eight uniforms of (path id, path-local iteration) (rng.uniforms).
+__device__ __forceinline__ void draws(const PtParams& P, uint32_t rid, uint32_t it, float u[8]) {
 #pragma unroll
-    for (uint32_t block = 0; block < 2; ++block) {
-      uint32_t c[4] = {rid, it, block, STREAM_PATH};
-      philox(c, P.key0, P.key1);
+  for (uint32_t block = 0; block < 2; ++block) {
+    uint32_t c[4] = {rid, it, block, STREAM_PATH};
+    philox(c, P.key0, P.key1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) u[4 * block + j] = u01(c[j]);
-    }
-
-    *rays += 1;
-    Hit h = raycast(geo, attr, sph, P, org, dir);
-    if (!h.hit) {  // miss: += weight * gray, path ends (CudaUtil.cuh:375-379)
-      radiance = radiance + weight * ld3(P.miss);
-      break;
-    }
-    V3 wo = -dir;
-    if (sqlen(h.mat.emittance) > EPS) radiance = radiance + weight * h.mat.emittance;
-    if (P.nee && P.num_lights > 0) {
-      radiance = radiance + weight * nee(geo, attr, sph, lights, P, h, wo, u);
-      *rays += 1;
-    }
-
-    V3 wi = sample_bsdf(h.mat, h.frame, wo, u[3], u[4], u[5]);
-    V3 w1 = eval_bsdfcos(h.mat, h.frame, wo, wi);
-    float w2 = fmaxf(pdf_bsdf(h.mat, h.frame, wo, wi), P.pdf_clamp);
-    if (sqlen(wi) <= EPS) break;  // dead sample (CudaUtil.cuh:335-338)
-    weight = weight * (w1 / w2);
-
-    if (h.mat.opacity < ONE_MINUS_EPS)  // sticky flag (CudaUtil.cuh:307)
-      refracted = dot(h.frame.normal, wo) * dot(h.frame.normal, wi) <= 0.0f;
-    org = h.p + h.frame.normal * (refracted ? -EPS : EPS);
-    dir = normalize(wi);
-
-    bool over_cap = refracted && refract_cnt > P.refract_cap;  // `RefractCnt++ > 8`
-    refract_cnt += refracted ? 1 : 0;
-
-    bool rr_lane = !refracted && depth >= P.rr_bounce;
-    float rr_prob = clampf(max3(weight), P.rr_stop_prob, 1.0f);
-    bool rr_survive = u[6] < rr_prob;
-    if (rr_lane && rr_survive) weight = weight / rr_prob;
-
-    depth += refracted ? 0 : 1;
-    if (over_cap || (rr_lane && !rr_survive) || depth >= P.max_bounce) break;
+    for (int j = 0; j < 4; ++j) u[4 * block + j] = u01(c[j]);
   }
-  return radiance;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -328,13 +301,71 @@ __global__ void __launch_bounds__(BLOCK)
     slot[0] = slot[1] = slot[2] = 0.0f;
   }
   long long rays = 0;
-  for (long long off = lane; off < P.total_paths; off += P.lanes) {
-    V3 rad = trace_path(geo, tri_attr, sph, li, P, P.base_path + off, &rays);
-    int k = (int)((off / P.lanes) % P.k_pix);
-    float* slot = film + 3 * ((long long)k * P.lanes + lane);
-    slot[0] += rad.x;
-    slot[1] += rad.y;
-    slot[2] += rad.z;
+  long long off = lane;  // the current path is base_path + off
+  // one path's state (make_bounce_fn), reset at each regeneration
+  V3 org, dir, radiance = zero3(), weight = v3(1.0f, 1.0f, 1.0f);
+  int depth = 0, refract_cnt = 0;
+  bool refracted = false;
+  uint32_t it = 0;
+  if (off < P.total_paths) camera_ray(P, P.base_path + off, &org, &dir);
+  const bool do_nee = P.nee && P.num_lights > 0;
+  // The loop leaves only through its condition: a `break` in the body would
+  // move the point where a warp's diverged lanes meet again past the loop,
+  // and lanes that regenerated would run the next scans apart from the rest.
+  while (off < P.total_paths) {
+    rays += 1;
+    Hit h = raycast(geo, tri_attr, sph, P, org, dir);
+    bool ended = true;
+    if (!h.hit) {  // miss: += weight * gray, path ends (CudaUtil.cuh:375-379)
+      radiance = radiance + weight * ld3(P.miss);
+    } else {
+      const uint32_t rid = (uint32_t)(P.base_path + off);
+      float u[8];
+      draws(P, rid, it, u);
+      V3 wo = -dir;
+      if (sqlen(h.mat.emittance) > EPS) radiance = radiance + weight * h.mat.emittance;
+      if (do_nee) {
+        radiance = radiance + weight * nee(geo, tri_attr, sph, li, P, h, wo, u);
+        rays += 1;
+      }
+
+      V3 wi = sample_bsdf(h.mat, h.frame, wo, u[3], u[4], u[5]);
+      if (!(sqlen(wi) <= EPS)) {  // else a dead sample ends the path (CudaUtil.cuh:335-338)
+        V3 w1 = eval_bsdfcos(h.mat, h.frame, wo, wi);
+        float w2 = fmaxf(pdf_bsdf(h.mat, h.frame, wo, wi), P.pdf_clamp);
+        weight = weight * (w1 / w2);
+        if (h.mat.opacity < ONE_MINUS_EPS)  // sticky flag (CudaUtil.cuh:307)
+          refracted = dot(h.frame.normal, wo) * dot(h.frame.normal, wi) <= 0.0f;
+        org = h.p + h.frame.normal * (refracted ? -EPS : EPS);
+        dir = normalize(wi);
+
+        bool over_cap = refracted && refract_cnt > P.refract_cap;  // `RefractCnt++ > 8`
+        refract_cnt += refracted ? 1 : 0;
+
+        bool rr_lane = !refracted && depth >= P.rr_bounce;
+        float rr_prob = clampf(max3(weight), P.rr_stop_prob, 1.0f);
+        bool rr_survive = u[6] < rr_prob;
+        if (rr_lane && rr_survive) weight = weight / rr_prob;
+
+        depth += refracted ? 0 : 1;
+        ended = over_cap || (rr_lane && !rr_survive) || depth >= P.max_bounce;
+      }
+    }
+    if (ended) {  // commit, then regenerate in place: the lane's next strided path
+      float* slot = film + 3 * ((off / P.lanes) % P.k_pix * P.lanes + lane);
+      slot[0] += radiance.x;
+      slot[1] += radiance.y;
+      slot[2] += radiance.z;
+      off += P.lanes;
+      if (off < P.total_paths) camera_ray(P, P.base_path + off, &org, &dir);
+      radiance = zero3();
+      weight = v3(1.0f, 1.0f, 1.0f);
+      depth = refract_cnt = 0;
+      refracted = false;
+      it = 0;
+    } else {
+      ++it;
+    }
   }
   rays_out[lane] = rays;
 }
@@ -357,6 +388,25 @@ extern "C" int pt_bounce_render(const PtParams* params, const float* tri_geo, co
   pt::bounce_kernel<<<grid, pt::BLOCK, smem, (cudaStream_t)stream>>>(P, tri_geo, tri_attr, spheres,
                                                                    lights, film, rays);
   return (int)cudaGetLastError();
+}
+
+// The kernel as built and as the card holds it at `smem` bytes of dynamic
+// shared memory: out4 = {registers a thread, local memory bytes a thread
+// (spills), resident blocks per SM, threads a block}. Returns the first
+// CUDA error (0 = none).
+extern "C" int pt_bounce_occupancy(int smem, int* out4) {
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, pt::bounce_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pt::bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pt::bounce_kernel, pt::BLOCK, smem);
+  out4[0] = attr.numRegs;
+  out4[1] = (int)attr.localSizeBytes;
+  out4[2] = blocks;
+  out4[3] = pt::BLOCK;
+  return (int)err;
 }
 
 // Table row widths and sizeof(PtParams), so the wrapper can check that its

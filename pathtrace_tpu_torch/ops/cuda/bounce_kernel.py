@@ -142,11 +142,10 @@ def _check(name: str, x: torch.Tensor, cols: int, dtype=torch.float32):
         raise ValueError(f"{name}: need shape (N, {cols}), got {tuple(x.shape)}")
 
 
-@functools.cache
-def _render_fn():
-    """The library's launcher, after checking once per process that the
-    library's struct and table layouts are the ones this module packs."""
-    lib = build.load_library()
+def render_fn_of(lib: ctypes.CDLL):
+    """The launcher `pt_bounce_render` of a built kernel library, after
+    checking that the library's struct and table layouts are the ones this
+    module packs."""
     strides = (ctypes.c_int * 4)()
     lib.pt_bounce_strides.argtypes = [ctypes.c_void_p]
     lib.pt_bounce_strides.restype = ctypes.c_int
@@ -159,6 +158,31 @@ def _render_fn():
     fn.argtypes = [ctypes.POINTER(PtParams)] + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _render_fn():
+    """This package's launcher, checked once per process."""
+    return render_fn_of(build.load_library())
+
+
+def occupancy(pack: FusedPack) -> dict:
+    """The kernel as built and as the current card holds it with this
+    pack's shared memory: registers and local-memory bytes (stack frame and
+    spills) a thread, resident blocks and warps per SM, threads a block,
+    SMs, and the lanes of one full wave (blocks x SMs x threads)."""
+    lib = build.load_library()
+    out = (ctypes.c_int * 4)()
+    lib.pt_bounce_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.pt_bounce_occupancy.restype = ctypes.c_int
+    err = lib.pt_bounce_occupancy(pack.smem_bytes, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"bounce kernel occupancy query failed: cudaError {err}")
+    regs, local, blocks, block = out
+    sms = torch.cuda.get_device_properties(pack.tri_geo.device).multi_processor_count
+    return {"registers": regs, "local_bytes": local, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * block // 32, "block": block, "sms": sms,
+            "wave_lanes": blocks * sms * block}
 
 
 def launch(pack: FusedPack, params: PtParams):

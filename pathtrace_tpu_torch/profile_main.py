@@ -25,6 +25,12 @@ the job:
 - train: `BENCH_SCENE=train`'s step (Cornell + spheres 128x128, recording
   sweep through the all-triangles kernel, chunked replay backward) at
   PROFILE_SPP spp (default 8; the bench runs 64), for the same reason.
+
+`schedule_share` (with `PathIterations` and `useful_share`) counts, from
+the plain wavefront, how much of a warp's time the bounce kernel's lanes
+spend on a path's work under two schedules of the same paths, and the
+hits, shadow rays and triangle-test work that chip_smoke.py's bound of the
+kernel charges.
 """
 
 from __future__ import annotations
@@ -32,6 +38,114 @@ from __future__ import annotations
 import json
 import os
 import time
+
+
+class PathIterations:
+    """on_iteration hook of integrator/wavefront.py::_run_wavefront that
+    records each path's bounce iterations on the device, without a host
+    sync: iters[path id - base_path] is the path's last lane_iter + 1."""
+
+    def __init__(self, total_paths: int, base_path: int, device):
+        import torch
+        self.base_path = base_path
+        self.iters = torch.zeros((total_paths,), dtype=torch.int64, device=device)
+
+    def __call__(self, ray_ids, lane_iter, alive):
+        import torch
+        idx = torch.where(alive, ray_ids - self.base_path, 0)
+        val = torch.where(alive, lane_iter.to(torch.int64) + 1, 0)
+        self.iters.scatter_reduce_(0, idx, val, "amax")
+
+
+def useful_share(iters, lanes: int, warp: int = 32) -> tuple[float, float]:
+    """(nested, in place): the share of a warp's lane-iterations that do a
+    path's work, when lane i traces the path offsets i, i + lanes, ... (the
+    static strided assignment; iters[offset] as PathIterations records) and
+    a warp holds `warp` consecutive lanes. Nested: each path runs to its end
+    before the lane's next starts, so a warp's round lasts its longest path.
+    In place: one loop over iterations that regenerates ended paths, so a
+    warp lasts as long as its busiest lane."""
+    import torch
+    n = iters.numel()
+    rounds, warps = -(-n // lanes), -(-lanes // warp)
+    grid = torch.zeros((rounds * lanes,), dtype=torch.int64, device=iters.device)
+    grid[:n] = iters
+    g = torch.zeros((rounds, warps * warp), dtype=torch.int64, device=iters.device)
+    g[:, :lanes] = grid.view(rounds, lanes)
+    g = g.view(rounds, warps, warp)
+    useful = float(iters.sum())
+    nested = float(g.amax(dim=2).sum()) * warp
+    in_place = float(g.sum(dim=0).amax(dim=1).sum()) * warp
+    return useful / nested, useful / in_place
+
+
+def schedule_share(scene, camera, spp: int, base_key, cfg, lanes: int, sample_offset: int = 0,
+                   search=None, pair_ops=None) -> dict:
+    """The plain static wavefront (the bounce kernel's plain version) over
+    these paths, with counts: image and rays as _run_wavefront returns
+    them; lane_rays, the rays each lane traced (one closest-hit ray per live
+    iteration, one shadow ray per live hit when NEE runs); iters, each
+    path's iterations; hits, the live hits (each shaded once); nee_rays;
+    visible, the shadow rays that reached the sampled light; mt_ops, when
+    pair_ops(org, dirn) -> (R,) float64 is given, its sum over each live
+    lane's closest-hit ray and each live hit's shadow ray; and the useful
+    shares of useful_share. `search` as in megakernel.default_raycast. The
+    counts stay on the device until the run ends."""
+    import torch
+
+    from pathtrace_tpu_torch.integrator.megakernel import (default_raycast,
+                                                           default_shadow_raycast,
+                                                           shadow_visibility)
+    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront
+
+    num_pix = camera.width * camera.height
+    raycast = default_raycast(scene, search)
+    visible = shadow_visibility(default_shadow_raycast(scene, search))
+    recorder = PathIterations(num_pix * spp, sample_offset * num_pix, scene.device)
+    lane_rays = torch.zeros((lanes,), dtype=torch.int64, device=scene.device)
+    # hits, nee_rays, visible
+    counts = torch.zeros((3,), dtype=torch.int64, device=scene.device)
+    mt_ops = torch.zeros((), dtype=torch.float64, device=scene.device)
+    step = {}
+
+    def counted_raycast(sc, org, dirn, t_min, t_max):
+        hit = raycast(sc, org, dirn, t_min, t_max)
+        step["hit"] = hit.hit
+        if pair_ops is not None:
+            step["closest"] = pair_ops(org, dirn)
+        return hit
+
+    def counted_visible(sc, org, dirn, t_min, t_max, light_tri):
+        step["reached"] = visible(sc, org, dirn, t_min, t_max, light_tri)
+        if pair_ops is not None:
+            step["shadow"] = pair_ops(org, dirn)
+        return step["reached"]
+
+    def on_iteration(ray_ids, lane_iter, alive):
+        recorder(ray_ids, lane_iter, alive)
+        lane_rays.add_(alive.to(torch.int64))
+        live_hit = alive & step["hit"]
+        counts[0] += live_hit.sum()
+        if "reached" in step:  # NEE ran: one shadow ray per live hit
+            lane_rays.add_(live_hit.to(torch.int64))
+            counts[1] += live_hit.sum()
+            counts[2] += (live_hit & step["reached"]).sum()
+        if pair_ops is not None:
+            mt_ops.add_(torch.where(alive, step["closest"], 0.0).sum())
+            if "shadow" in step:
+                mt_ops.add_(torch.where(live_hit, step["shadow"], 0.0).sum())
+        step.clear()
+
+    with torch.no_grad():
+        img, rays = _run_wavefront(scene, camera, spp, base_key, cfg, lanes, sample_offset,
+                                   search=search, raycast_fn=counted_raycast,
+                                   visible_fn=counted_visible, on_iteration=on_iteration)
+    nested, in_place = useful_share(recorder.iters, lanes)
+    hits, nee_rays, reached = counts.tolist()
+    return {"image": img, "rays": rays, "lane_rays": lane_rays, "iters": recorder.iters,
+            "hits": hits, "nee_rays": nee_rays, "visible": reached,
+            "mt_ops": float(mt_ops) if pair_ops is not None else None,
+            "nested": nested, "in_place": in_place}
 
 
 def main() -> None:

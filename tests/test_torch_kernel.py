@@ -32,11 +32,20 @@ tiles: the same float32 operations in the same order with the same tie
 rule, so hit and idx are bit-equal, and t/u/v bit-equal where hit. The
 fused kernel's reference wavefront takes the plain search too, so it runs
 no kernel.
+
+The bounce kernel's schedule (one loop per lane over bounce iterations,
+paths regenerated in place) against the plain wavefront at the same lanes,
+bit for bit: the image and the rays of every lane
+(profile_main.schedule_share), with lanes beyond the path pool, several
+lanes per pixel, several pixels per lane, glass refraction chains up to
+refract_cap, NEE off, max_bounce 1 and 2, path ids whose next strided id
+passes 2**31, and the fused engine's default lanes.
 """
 
 import pytest
 import torch
 
+from pathtrace_tpu_torch import profile_main
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
 from pathtrace_tpu_torch.models import procedural
@@ -207,3 +216,39 @@ def test_mt_kernel_train_step_matches_plain(cuda):
     for ga, gb in zip(a[1], b[1]):
         for f in MAT_FIELDS:
             torch.testing.assert_close(getattr(ga, f), getattr(gb, f), rtol=1e-5, atol=1e-7)
+
+
+# name: (scene, film side, spp, lanes, IntegratorConfig fields, sample_offset)
+BIT_EQUAL_CASES = {
+    "lanes_beyond_pool": ("spheres", 8, 2, 256, {}, 0),
+    "lanes_2x_pixels": ("spheres", 32, 8, 2048, {}, 0),
+    "pixels_2x_lanes": ("spheres", 32, 8, 512, {}, 0),
+    "glass": ("glass", 32, 16, 1024, {}, 0),
+    "glass_refract_cap_2": ("glass", 32, 16, 1024, {"refract_cap": 2}, 0),
+    "nee_off": ("spheres", 32, 8, 1024, {"nee": False}, 0),
+    "max_bounce_1": ("spheres", 32, 8, 1024, {"max_bounce": 1}, 0),
+    "max_bounce_2": ("spheres", 32, 8, 1024, {"max_bounce": 2}, 0),
+    # the last path ids lie just below 2**31 - 1024; id + lanes passes 2**31
+    "path_ids_past_2_31": ("spheres", 32, 4, 2048, {}, 2 ** 31 // 1024 - 4 - 1),
+    "default_lanes_64": ("spheres", 64, 64, None, {}, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIT_EQUAL_CASES))
+def test_kernel_bit_equal_to_plain(cuda, case):
+    scene_name, side, spp, lanes, fields, offset = BIT_EQUAL_CASES[case]
+    scene = SCENES[scene_name]().to(cuda)
+    cam = procedural.default_camera(side, side)
+    lanes = lanes or bk.auto_fused_config(side * side)
+    key, cfg = rng.make_key(8), IntegratorConfig(**fields)
+    pack = bk.build_fused_pack(scene)
+    launches = bk.LAUNCHES
+    img, rays = bk.fused_chunk(pack, cam, spp, offset, key, cfg, lanes)
+    _, lane_rays = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, spp, offset))
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == launches + 2
+    plain = profile_main.schedule_share(scene, cam, spp, key, cfg, lanes, offset,
+                                        search=mt.mt_closest_plain)
+    assert torch.equal(img, plain["image"])
+    assert torch.equal(lane_rays, plain["lane_rays"])
+    assert rays == plain["rays"]

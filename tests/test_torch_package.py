@@ -1,7 +1,7 @@
 """Package-level contracts of the PyTorch port (no GPU, no nvcc needed).
 
-- No module of pathtrace_tpu_torch, and not chip_smoke.py, imports jax or
-  the JAX package.
+- No module of pathtrace_tpu_torch, not chip_smoke.py and not the port's
+  tools (tools/torch_*.py) imports jax or the JAX package.
 - chip_smoke.py without a GPU, alone in a directory, exits non-zero and
   prints no result.
 - The package imports without nvcc, triton or a GPU, and building the
@@ -29,7 +29,8 @@ from pathtrace_tpu_torch.utils import rng
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "pathtrace_tpu_torch"
-MODULES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+MODULES = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "tools").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(REPO)))
