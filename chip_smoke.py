@@ -27,14 +27,17 @@ benchmarks). Phases, one line each (or one per comparison):
      resident blocks per SM; then the CLI once as a subprocess;
   5. the mesh path: blob82k (the 82k-triangle OBJ asset in the Cornell
      room, KD cells of 1024) through the wavefront engine and the KD
-     raycast kernel. First the kernel against its plain version on 65,536
-     camera rays at 256x256, 65,536 rays leaving the surface and 65,536
-     shadow rays, in both modes (hit and prim_id agree on >= 99.99% of
-     rays, t/u/v within 1e-6 relative where both hit the same triangle;
-     times). Then 256x256 @ 64 spp in chunks of 64 spp at the bench's lanes
+     raycast kernel. First the kernel against its plain version on
+     blob82k and on sphere_mesh_scene(4) with cells of 128: 65,536 camera
+     rays at 256x256, 65,536 rays leaving the surface, 65,536 shadow rays
+     and 16,384 rays of each edge set (kd_raycast.edge_rays), in both
+     modes, hit, t, u, v and prim_id bit-equal; on blob82k each probe set's
+     kernel ms, bound, kernel over bound, plain ms and MT tests issued and
+     needed, and the kernel's registers and resident warps per SM. Then
+     256x256 @ 64 spp in chunks of 64 spp at the bench's lanes
      (launch count, finite image, rays per path, seconds, paths/s, rays/s);
-     the same path through the plain version at 4 spp (times; > 99% of
-     pixels within 1e-3, rays within 1e-5, means within 2%); 48x48 @ 4 spp
+     the same path through the plain version at 4 spp (times; image and
+     rays bit-equal, means within 2%); 48x48 @ 4 spp
      against the committed golden (tests/golden/blob82k_48x48_4spp_seed11.npy,
      at tools/tpu_cpu_agreement.py's bar); then `cli render --preset
      mesh512` at 64x64 @ 4 spp as a subprocess.
@@ -259,42 +262,68 @@ def kd_bound(clusters, org, dirn, t_min, t_max, hit, t) -> tuple[float, str, flo
     return (*bound(ops, r * (RAY_BYTES + HIT_BYTES) + tensor_bytes(clusters)), tests)
 
 
-def kd_compare(mesh, cam) -> tuple[float, float, float, tuple]:
+def kd_compare(scenes: dict, cam) -> tuple[float, float, float, tuple]:
     """[5 kd compare]: the KD kernel against its plain version on the card,
-    on 65,536 camera, surface and shadow rays in both modes. Returns the
-    kernel's and the plain version's ms for the camera rays in closest mode
-    (the wavefront's first bounce at 256x256), the largest t/u/v error, and
-    kd_bound of those rays."""
-    from pathtrace_tpu_torch.ops import kd_raycast as kd
+    hit, t, u, v and prim_id bit-equal on every ray, in both modes, on each
+    KD scene: 65,536 camera, surface and shadow rays (probe_rays) and 16,384
+    rays of each edge set (edge_rays). On blob82k, for each probe set and
+    mode: the kernel's ms (one launch, as the kernels line has always
+    timed it, and the mean of 20 back-to-back launches), its bound
+    (kd_bound) and the kernel over the bound, the plain version's ms, and
+    the MT tests and slab tests the walk issues (kd_walk_counts) against
+    the MT tests the bound needs; then the kernel's registers and resident
+    warps per SM. Returns the kernel's single-launch and the plain
+    version's ms for the camera rays in closest mode (the wavefront's first
+    bounce at 256x256), the largest t/u/v difference over every compared
+    ray, and kd_bound of those rays."""
+    import torch
 
-    rays = kd.probe_rays(mesh, cam, cam.width * cam.height, seed=3)
-    kd.kd_closest(mesh.clusters, *rays["camera"], "closest")  # loads the library
+    from pathtrace_tpu_torch.ops import kd_raycast as kd
+    from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
+
     timing, max_err = None, 0.0
-    for name, args in rays.items():
-        for mode in kd.MODES:
-            k, k_ms = timed(lambda: kd.kd_closest(mesh.clusters, *args, mode))
-            p, p_ms = timed(lambda: kd.kd_closest_plain(mesh.clusters, *args, mode))
-            same = (k[0] == p[0]) & (~p[0] | (k[4] == p[4]))
-            agree = same.double().mean().item()
-            both = same & p[0]
-            err, close = 0.0, True
-            for a, b in ((a[both], b[both]) for a, b in zip(k[1:4], p[1:4])):
-                e = (a - b).abs()
-                err = max(err, e.max().item() if e.numel() else 0.0)
-                close = close and bool((e <= 1e-6 + 1e-6 * b.abs()).all())
-            max_err = max(max_err, err)
-            print(f"[5 kd compare] {name} rays {args[0].shape[0]} {mode}: hit rate "
-                  f"{p[0].double().mean().item():.4f}, hit+prim_id agreement {agree:.6f}, "
-                  f"max abs err t/u/v {err:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                  f"({p_ms / k_ms:.1f}x)", flush=True)
-            if agree < 0.9999 or not close:
-                fail(f"KD kernel disagrees with its plain version ({name}, {mode})")
-            if (name, mode) == ("camera", "closest"):
-                timing = (k_ms, p_ms, kd_bound(mesh.clusters, *args, p[0], p[1]))
-    b_ms, b_by, tests = timing[2]
-    print(f"[5 kd compare] bound of the camera rays, closest: {tests:.0f} MT tests needed "
-          f"({tests / rays['camera'][0].shape[0]:.1f} a ray), {b_ms:.6f} ms ({b_by}); the "
-          f"kernel takes {timing[0] / b_ms:.1f}x its bound", flush=True)
+    for scene_name, scene in scenes.items():
+        cl = scene.clusters
+        sets = kd.probe_rays(scene, cam, cam.width * cam.height, seed=3)
+        sets.update(kd.edge_rays(scene, 16384, seed=1))
+        for name, args in sets.items():
+            probe = name in ("camera", "surface", "shadow")
+            timed_here = probe and scene_name == "blob82k"
+            if timed_here:
+                counts = kd.kd_walk_counts(cl, *args)
+            for mode in kd.MODES:
+                k, k_ms = timed(lambda: kd.kd_closest(cl, *args, mode))
+                p, p_ms = timed(lambda: kd.kd_closest_plain(cl, *args, mode))
+                if k[0].numel():
+                    max_err = max(max_err, *((a - b).abs().max().item()
+                                             for a, b in zip(k[1:4], p[1:4])))
+                for field, a, b in zip(("hit", "t", "u", "v", "prim_id"), k, p):
+                    if not torch.equal(a, b):
+                        fail(f"KD kernel is not bit-equal to its plain version: {field} "
+                             f"differs on {int((a != b).sum())} of {a.numel()} {name} rays "
+                             f"({scene_name}, {mode})")
+                line = (f"[5 kd compare] {scene_name} {name} rays {args[0].shape[0]} {mode}: "
+                        f"hit rate {p[0].double().mean().item():.4f}, bit-equal")
+                if timed_here:
+                    mean_ms = timed_launches(lambda: kd.kd_closest(cl, *args, mode))
+                    if mode == "closest":
+                        b_ms, b_by, need = kd_bound(cl, *args, p[0], p[1])
+                    per_ray = lambda x: x.double().mean().item()
+                    line += (f"; kernel {k_ms:.4f} ms one launch, {mean_ms:.4f} ms mean of 20; "
+                             f"bound {b_ms:.6f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x "
+                             f"(mean of 20: {mean_ms / b_ms:.1f}x); plain {p_ms:.3f} ms; MT "
+                             f"tests issued {per_ray(counts['tests']):.1f} a ray, needed "
+                             f"{need / args[0].shape[0]:.1f}; slab tests "
+                             f"{per_ray(counts['slab']):.1f} a ray; cells visited "
+                             f"{per_ray(counts['visits']):.3f} a ray")
+                    if (name, mode) == ("camera", "closest"):
+                        timing = (k_ms, p_ms, (b_ms, b_by, need))
+                print(line, flush=True)
+    occ = kd_kernel.occupancy(scenes["blob82k"].clusters.num_clusters)
+    print(f"[5 kd compare] kernel, {kd_kernel.TEAM} threads a ray: {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local memory a thread, {occ['blocks_per_sm']} resident "
+          f"blocks of {occ['block']} ({occ['warps_per_sm']} warps) per SM", flush=True)
+    print(f"[5 kd compare] max abs err t/u/v over every compared ray {max_err:.3e}", flush=True)
     return timing[0], timing[1], max_err, timing[2][:2]
 
 
@@ -319,7 +348,9 @@ def mesh_phase(smi: str) -> dict:
           f"cells, {mesh.clusters.num_members} member slots, loaded and built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     cam = procedural.default_camera(256, 256)
-    k_ms, p_ms, max_err, (b_ms, b_by) = kd_compare(mesh, cam)
+    spheres = procedural.sphere_mesh_scene(4).with_kd_binned(max_tris=128).to("cuda")
+    k_ms, p_ms, max_err, (b_ms, b_by) = kd_compare({"sphere_mesh": spheres, "blob82k": mesh},
+                                                   cam)
 
     # the mesh path: what `BENCH_SCENE=mesh` runs
     cfg = IntegratorConfig()
@@ -342,7 +373,8 @@ def mesh_phase(smi: str) -> dict:
         fail(f"rays per path {rays / paths} outside [1, {2 * cfg.max_iters}]")
 
     # the same scene, film and lanes at 4 spp through the kernel and through
-    # the plain search: same paths and same winners, film sums reordered
+    # the plain search: the same winners, and at these static lanes one film
+    # slot a lane (no atomics), so the same image and rays bit for bit
     (k_img, k_rays), k4_ms = timed(lambda: render_wavefront_stats(
         mesh, cam, 4, key, cfg, lanes, device="cuda"))
     (p_img, p_rays), p4_ms = timed(lambda: render_wavefront_stats(
@@ -354,8 +386,8 @@ def mesh_phase(smi: str) -> dict:
           f"({p4_ms / k4_ms:.1f}x); pixel agreement {agree:.6f} at 0.001, max abs err "
           f"{(k_img - p_img).abs().max().item():.3e}, rays {k_rays} vs {p_rays} (rel "
           f"{rays_rel:.3e}); mean rel diff main@64 vs plain@4 {main_rel:.3e}", flush=True)
-    if agree <= 0.99 or rays_rel > 1e-5:
-        fail("the mesh path through the kernel disagrees with its plain version")
+    if not (torch.equal(k_img, p_img) and k_rays == p_rays):
+        fail("the mesh path through the kernel is not bit-equal to its plain version")
     if main_rel > 0.02:
         fail("mesh-path image mean is not within 2% of the plain version's")
 

@@ -73,4 +73,22 @@ __device__ __forceinline__ bool mt_hit(V3 org, V3 dir, const float* g, float tmi
   return true;
 }
 
+// mt_hit with t <= t_best in place of t < t_best, for scans whose equal t
+// goes to the lower id though the rows are not in id order (the KD
+// raycast's cells): the caller breaks the tie. The same operations as
+// mt_hit, so the same bits.
+__device__ __forceinline__ bool mt_hit_upto(V3 org, V3 dir, const float* g, float tmin,
+                                            float tmax, float t_best, MtHit* out) {
+  V3 e1 = {g[3], g[4], g[5]}, e2 = {g[6], g[7], g[8]};
+  V3 tvec = org - V3{g[0], g[1], g[2]};
+  V3 p = cross(dir, e2);
+  V3 q = cross(tvec, e1);
+  float det = dot(p, e1);
+  float inv_det = 1.0f / det;
+  float t = dot(q, e2) * inv_det;
+  if (!(t >= tmin && t <= tmax && t <= t_best)) return false;
+  *out = {t, dot(p, tvec), dot(q, dir), inv_det, true};
+  return true;
+}
+
 }  // namespace pt

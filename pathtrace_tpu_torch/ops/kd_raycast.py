@@ -90,6 +90,91 @@ def kd_closest_plain(clusters: ClusterArrays, org, dirn, t_min, t_max,
             torch.where(hit, best_id, torch.zeros_like(best_id)))
 
 
+SLAB_WIDEN = 1.00000024  # the far bound's widening (slab_all), also the exit rule's
+
+
+def _reach(best_t):
+    """The walk's exit rule: a cell whose tnear lies beyond this holds no
+    hit nearer than best_t."""
+    return torch.maximum(best_t, best_t * SLAB_WIDEN)
+
+
+def kd_walk_counts(clusters: ClusterArrays, org, dirn, t_min, t_max) -> dict:
+    """The KD kernel's work on these rays, counted by its own rules in plain
+    PyTorch (no kernel runs). Each ray visits its crossed cells in ascending
+    (tnear, cell) order and stops before the first whose tnear exceeds its
+    best t so far times SLAB_WIDEN; the winner is the least (t, original id)
+    of the visited cells' members. Returns, per ray:
+
+    visited, visited_tn: (R, V) the cells in visiting order and their
+        tnear, -1 and inf past the last; visits: (R,) how many;
+    tests: the Möller-Trumbore tests the walk issues (every member of every
+        visited cell);
+    slab: the walk's slab tests, the cell count for each time it lists the
+        crossed cells after its cursor: once, and again after visiting a
+        cell set aside because it was not among the first kd_kernel.LIST_CAP
+        of them by index;
+    crossed: the cells the segment crosses;
+    hit, t, prim_id: the walk's winner (t = 0, prim_id = 0 on a miss)."""
+    r, m = org.shape[0], clusters.num_clusters
+    dev = org.device
+    cross, tnear = slab_all(org, safe_inv_dir(dirn), clusters.bmin, clusters.bmax, t_min, t_max)
+    key = torch.where(cross, tnear, torch.full_like(tnear, float("inf")))
+    # (tnear, cell) order: a stable sort keeps cells of equal tnear in index order
+    order = torch.sort(key, dim=1, stable=True).indices
+    crossed = cross.sum(dim=1)
+    count = clusters.prim_count.long()
+    cells = torch.arange(m, device=dev)[None, :]
+
+    def listing(after):
+        return after & (torch.cumsum(after.long(), dim=1) <= kd_kernel.LIST_CAP)
+
+    best_t = torch.full((r,), float("inf"), device=dev)
+    best_id = torch.full((r,), _NO_ID, dtype=torch.int32, device=dev)
+    visits = torch.zeros((r,), dtype=torch.int64, device=dev)
+    tests = torch.zeros((r,), dtype=torch.int64, device=dev)
+    listings = torch.ones((r,), dtype=torch.int64, device=dev)
+    listed = listing(cross)
+    visited, visited_tn = [], []
+    for k in range(int(crossed.max()) if r else 0):
+        cell = order[:, k]
+        tn = key.gather(1, cell[:, None])[:, 0]
+        walking = (visits == k) & (k < crossed) & (tn <= _reach(best_t))
+        if not bool(walking.any()):
+            break
+        for c in torch.unique(cell[walking]).tolist():
+            rows = torch.nonzero(walking & (cell == c))[:, 0]
+            s, n = int(clusters.prim_start[c]), int(count[c])
+            mem = clusters.members[s:s + n]
+            t, valid, _, _ = intersect_tris_all(mem[:, 0:3], mem[:, 3:6], mem[:, 6:9],
+                                                org[rows], dirn[rows], t_min[rows], t_max[rows])
+            ct, col, chit = closest_masked(torch.where(valid, t, torch.full_like(t, float("inf"))))
+            cid = clusters.dup_map[s:s + n][col.long()]
+            bt, bi = best_t[rows], best_id[rows]
+            better = chit & ((ct < bt) | ((ct == bt) & (cid < bi)))
+            best_t[rows] = torch.where(better, ct, bt)
+            best_id[rows] = torch.where(better, cid, bi)
+        tests += torch.where(walking, count[cell], 0)
+        visits += walking.long()
+        visited.append(torch.where(walking, cell, -1))
+        visited_tn.append(torch.where(walking, tn, torch.full_like(tn, float("inf"))))
+        # a visited cell outside the list was set aside: list again after it
+        again = walking & ~listed.gather(1, cell[:, None])[:, 0]
+        listings += again.long()
+        after = cross & ((key > tn[:, None]) | ((key == tn[:, None]) & (cells > cell[:, None])))
+        listed = torch.where(again[:, None], listing(after), listed)
+    visited = torch.stack(visited, 1) if visited else torch.full((r, 0), -1, device=dev)
+    visited_tn = (torch.stack(visited_tn, 1) if visited_tn
+                  else torch.full((r, 0), float("inf"), device=dev))
+    hit = best_id != _NO_ID
+    return {
+        "visited": visited, "visited_tn": visited_tn, "visits": visits, "tests": tests,
+        "slab": m * listings, "crossed": crossed,
+        "hit": hit, "t": torch.where(hit, best_t, torch.zeros_like(best_t)),
+        "prim_id": torch.where(hit, best_id, torch.zeros_like(best_id)),
+    }
+
+
 def kd_closest(clusters: ClusterArrays, org, dirn, t_min, t_max, mode: str = "closest"):
     """(hit, t, u, v, prim_id) of the KD search: the plain version on CPU
     tensors, the CUDA kernel on CUDA tensors; any other device raises."""
@@ -172,3 +257,58 @@ def probe_rays(scene: Scene, camera: Camera, n: int, seed: int = 0) -> dict:
         "shadow": (f32(org), f32(to_light / dist[:, None]), torch.full((n,), EPS, device=dev),
                    f32(dist + 1.0)),
     }
+
+
+def edge_rays(scene: Scene, n: int, seed: int = 0) -> dict:
+    """Rays at the edges of the KD search's rules, for holding the kernel
+    against its plain version: {name: (org, dirn, t_min, t_max)} on the
+    scene's device, n rays each (t in [0, BIG_T] unless named).
+
+    axis:    axis-parallel directions (two components exactly 0: safe_inv's
+             1e30 path) from random points of the cells' bounds;
+    face:    rays that start on a face of a random cell and run in its
+             plane (one component exactly 0);
+    inside:  rays that start inside a random cell;
+    segment: t_min > 0 segments between random points of the bounds, on
+             [0.1 .. 0.5 of the distance, the distance] (shadow-like);
+    miss:    rays that start outside the bounds and leave them;
+    largest: rays from random points of the bounds toward random points of
+             the cell with the most members.
+    """
+    cl = scene.clusters
+    dev = scene.device
+    g = np.random.default_rng(seed)
+    bmin, bmax = cl.bmin.cpu().numpy(), cl.bmax.cpu().numpy()
+    lo, hi = bmin.min(axis=0), bmax.max(axis=0)
+    rows = np.arange(n)
+
+    def unit(d):
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    def rays(org, d, t_min=None, t_max=None):
+        f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+        t_min = np.zeros(n) if t_min is None else t_min
+        t_max = np.full(n, BIG_T) if t_max is None else t_max
+        return f32(org), f32(d), f32(t_min), f32(t_max)
+
+    out = {}
+    axis_d = np.zeros((n, 3))
+    axis_d[rows, g.integers(0, 3, n)] = g.choice([-1.0, 1.0], n)
+    out["axis"] = rays(g.uniform(lo, hi, (n, 3)), axis_d)
+    cell = g.integers(0, cl.num_clusters, n)
+    ax = g.integers(0, 3, n)
+    org = g.uniform(bmin[cell], bmax[cell])
+    org[rows, ax] = np.where(g.random(n) < 0.5, bmin[cell, ax], bmax[cell, ax])
+    d = g.normal(size=(n, 3))
+    d[rows, ax] = 0.0
+    out["face"] = rays(org, unit(d))
+    out["inside"] = rays(g.uniform(bmin[cell], bmax[cell]), unit(g.normal(size=(n, 3))))
+    org, q = g.uniform(lo, hi, (n, 3)), g.uniform(lo, hi, (n, 3))
+    dist = np.linalg.norm(q - org, axis=1)
+    out["segment"] = rays(org, (q - org) / dist[:, None], g.uniform(0.1, 0.5, n) * dist, dist)
+    away = unit(g.normal(size=(n, 3)))
+    out["miss"] = rays((lo + hi) / 2 + away * np.linalg.norm(hi - lo), away)
+    big = int(cl.prim_count.argmax())
+    org = g.uniform(lo, hi, (n, 3))
+    out["largest"] = rays(org, unit(g.uniform(bmin[big], bmax[big], (n, 3)) - org))
+    return out

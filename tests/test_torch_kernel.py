@@ -17,13 +17,19 @@ Sizes are chip_smoke.py's phase 3:
 
 The KD raycast kernel (csrc/kd_raycast.cu) against kd_closest_plain on
 the card, for sphere_mesh_scene(4) with cells of 128 and blob82k with
-cells of 1024: camera, surface and shadow rays (kd_raycast.probe_rays),
-in both modes. Both compute the same float32 operations with the same tie
-rule, so the target is equality; the bar is chip_smoke.py's phase 5: hit
-and prim_id agree on >= 99.99% of rays, t/u/v within 1e-6 relative where
-both hit the same triangle. The wavefront through the kernel against the
-wavefront through the plain search: > 99% of pixels within 1e-3, rays
-within 1e-5.
+cells of 1024: camera, surface and shadow rays (kd_raycast.probe_rays) and
+the edge sets of kd_raycast.edge_rays (axis-parallel directions, rays
+along a cell face, rays that start inside a cell, t_min > 0 segments,
+misses, the largest cell), in both modes; equal t across two cells
+(duplicated members); a row of 80 cells, more than a warp lists at once;
+an empty ray set. Both
+compute the same float32 operations with the same tie rule, and the
+kernel's walk visits every cell that can hold a nearer hit, so the bar is
+chip_smoke.py's phase 5: hit, t, u, v and prim_id bit-equal on every ray.
+The wavefront through the kernel against the wavefront through the plain
+search at static lanes (one film slot a lane, no atomics): bit-equal image
+and rays; and at the bar kept from before, > 99% of pixels within 1e-3,
+rays within 1e-5.
 
 The all-triangles kernel (csrc/mt_closest.cu) against mt_closest_plain, in
 both modes, on random rays (Cornell + spheres, 38 triangles) and on the
@@ -55,6 +61,7 @@ from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
 from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
 from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
 from pathtrace_tpu_torch.utils import rng
+from torch_port_helpers import cell_row_scene, two_cell_tie_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -127,15 +134,26 @@ KD_SCENES = {
 }
 
 
-def assert_kd_agree(k, p):
-    """chip_smoke.py's bar between the KD kernel and its plain version."""
-    k_hit, k_t, k_u, k_v, k_id = k
-    p_hit, p_t, p_u, p_v, p_id = p
-    same = (k_hit == p_hit) & (~p_hit | (k_id == p_id))
-    assert same.float().mean().item() >= 0.9999
-    both = same & p_hit
-    for a, b in ((k_t, p_t), (k_u, p_u), (k_v, p_v)):
-        torch.testing.assert_close(a[both], b[both], rtol=1e-6, atol=1e-6)
+def assert_kd_agree(k, p, what=""):
+    """chip_smoke.py's bar between the KD kernel and its plain version:
+    hit, t, u, v and prim_id bit-equal on every ray."""
+    for name, a, b in zip(("hit", "t", "u", "v", "prim_id"), k, p):
+        assert torch.equal(a, b), f"{what}: {name} differs on {int((a != b).sum())} rays"
+
+
+def _kd_check(scene, sets, mode, hit_floor=0.3):
+    """Through the entry the path calls: one launch a set, bit-equal."""
+    for name, (org, d, t_min, t_max) in sets.items():
+        launches = kd_kernel.LAUNCHES
+        k = kd.kd_closest(scene.clusters, org, d, t_min, t_max, mode)
+        torch.cuda.synchronize()
+        assert kd_kernel.LAUNCHES == launches + 1
+        p = kd.kd_closest_plain(scene.clusters, org, d, t_min, t_max, mode)
+        assert_kd_agree(k, p, f"{name} rays, {mode}")
+        if name not in ("miss", "segment"):
+            assert k[0].float().mean().item() > hit_floor, name
+        if mode == "shadow":
+            assert not bool(k[2].any()) and not bool(k[3].any())
 
 
 @pytest.mark.parametrize("scene_name", sorted(KD_SCENES))
@@ -143,16 +161,36 @@ def assert_kd_agree(k, p):
 def test_kd_kernel_matches_plain(cuda, scene_name, mode):
     scene = KD_SCENES[scene_name]().to(cuda)
     rays = kd.probe_rays(scene, procedural.default_camera(64, 64), 4096, seed=3)
-    for name, (org, d, t_min, t_max) in rays.items():
-        launches = kd_kernel.LAUNCHES
-        k = kd.kd_closest(scene.clusters, org, d, t_min, t_max, mode)
-        torch.cuda.synchronize()
-        assert kd_kernel.LAUNCHES == launches + 1
-        p = kd.kd_closest_plain(scene.clusters, org, d, t_min, t_max, mode)
-        assert k[0].float().mean().item() > 0.3, name
-        assert_kd_agree(k, p)
-        if mode == "shadow":
-            assert not bool(k[2].any()) and not bool(k[3].any())
+    _kd_check(scene, rays, mode)
+
+
+@pytest.mark.parametrize("scene_name", sorted(KD_SCENES))
+@pytest.mark.parametrize("mode", kd.MODES)
+def test_kd_kernel_edge_rays(cuda, scene_name, mode):
+    scene = KD_SCENES[scene_name]().to(cuda)
+    sets = kd.edge_rays(scene, 4096, seed=1)
+    assert not bool(kd.kd_closest_plain(scene.clusters, *sets["miss"], mode)[0].any())
+    _kd_check(scene, sets, mode)
+
+
+def test_kd_kernel_ties_and_long_rows(cuda):
+    """Equal t in two cells goes to the lower id; a ray crossing 80 cells,
+    nearest last in index order, more than a warp lists at once."""
+    for scene, rays in (two_cell_tie_scene(), cell_row_scene(80)):
+        scene = scene.to(cuda)
+        rays = {"synthetic": tuple(x.to(cuda) for x in rays)}
+        for mode in kd.MODES:
+            _kd_check(scene, rays, mode, hit_floor=0.5)
+
+
+def test_kd_kernel_empty_ray_set(cuda):
+    scene = KD_SCENES["sphere_mesh"]().to(cuda)
+    empty = (torch.zeros((0, 3), device=cuda), torch.zeros((0, 3), device=cuda),
+             torch.zeros((0,), device=cuda), torch.zeros((0,), device=cuda))
+    for mode in kd.MODES:
+        out = kd.kd_closest(scene.clusters, *empty, mode)
+        assert [x.shape for x in out] == [(0,)] * 5
+        assert [x.dtype for x in out] == [torch.bool] + [torch.float32] * 3 + [torch.int32]
 
 
 def test_kd_kernel_wavefront_matches_plain(cuda):
@@ -168,6 +206,19 @@ def test_kd_kernel_wavefront_matches_plain(cuda):
     assert kd_kernel.LAUNCHES == after_kernel  # the plain search launches nothing
     assert torch.isclose(a, b, rtol=1e-3, atol=1e-3).float().mean().item() > 0.99
     assert rays_a == pytest.approx(rays_b, rel=1e-5)
+
+
+@pytest.mark.parametrize("scene_name", sorted(KD_SCENES))
+def test_kd_kernel_wavefront_bit_equal(cuda, scene_name):
+    """Static lanes, one film slot a lane: no atomics, so the same winners
+    give the same image and rays bit for bit."""
+    scene = KD_SCENES[scene_name]().to(cuda)
+    cam = procedural.default_camera(32, 32)
+    key = rng.make_key(6)
+    a, rays_a = render_wavefront_stats(scene, cam, 2, key, lanes=1024, device=cuda)
+    b, rays_b = render_wavefront_stats(scene, cam, 2, key, lanes=1024, device=cuda,
+                                       search=kd.kd_closest_plain)
+    assert torch.equal(a, b) and rays_a == rays_b
 
 
 MT_SCENES = {

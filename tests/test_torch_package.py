@@ -10,6 +10,8 @@
   fast math) and compile only the package's own csrc sources.
 - Without a GPU, asking for CUDA fails instead of rendering on the CPU.
 - The fused engine rejects uniform hemisphere sampling.
+- The same-card A/B tools (tools/torch_bounce_ab.py, tools/torch_kd_ab.py)
+  refuse to run without a card.
 """
 
 import ast
@@ -205,3 +207,14 @@ def test_chip_smoke_without_gpu_prints_no_result(tmp_path):
     out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
+
+
+@pytest.mark.parametrize("tool", ["torch_bounce_ab.py", "torch_kd_ab.py"])
+def test_ab_tools_refuse_without_gpu(tool, tmp_path):
+    """The same-card A/B tools need a card: without one they exit non-zero
+    before building anything and print no result."""
+    out = subprocess.run([sys.executable, str(REPO / "tools" / tool), "--variant",
+                          f"x={tmp_path}"], cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "torch.cuda.is_available() is False" in out.stderr
+    assert "{" not in out.stdout
