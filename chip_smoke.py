@@ -44,16 +44,29 @@ benchmarks). Phases, one line each (or one per comparison):
   6. the training path: the all-triangles kernel against its plain version
      on 65,536 camera rays at 256x256 on Cornell + spheres, 65,536 rays
      leaving the surface and 65,536 shadow rays, camera rays on the
-     1,294-triangle sphere_mesh_scene(3) (two shared-memory tiles), and
-     1,048,576 camera rays, one per lane of the train step's recording
-     sweep, in both modes: hit and idx bit-equal, t/u/v bit-equal where
-     hit; times (the kernel's as the mean of 20 launches). Then
-     one train step at 128x128 @ 64 spp after a warm-up (launch count,
-     seconds, paths/s, finite loss and grads); the step at 4 spp through the
-     kernel and through the plain search (loss and grads within 1e-5
-     relative per field); wavetape grads against the lockstep scan-AD grads
-     at 24x24 @ 8 spp (per field, max error over the field's max below
-     1e-3); then `cli grad-check` at 16x16 @ 4 spp as a subprocess.
+     1,294-triangle sphere_mesh_scene(3) (two shared-memory tiles) and the
+     5,134-triangle sphere_mesh_scene(4) (six), 1,048,576 camera rays, one
+     per lane of the train step's recording sweep, random rays in ragged
+     counts (1, 31, 65,537) and on an empty table (a scene without
+     triangles), in both modes: hit and idx bit-equal, t/u/v bit-equal where
+     hit; times (the kernel's as the mean of 20 launches). Then the inputs
+     of every launch of one recording sweep of the train step at 128x128 @
+     64 spp (bench.train_sweep_searches): each launch bit-equal to the plain
+     version, the sweep's kernel ms (mean of 20 sweeps), its bound and the
+     kernel over the bound. Then one train step at 128x128 @ 64 spp after a
+     warm-up (launch count, seconds, paths/s, finite loss and grads); the
+     step at 4 spp through the kernel and through the plain search (loss and
+     grads within 1e-5 relative per field); wavetape grads against the
+     lockstep scan-AD grads at 24x24 @ 8 spp (per field, max error over the
+     field's max below 1e-3); then `cli grad-check` at 16x16 @ 4 spp as a
+     subprocess. A scene of spheres alone (procedural.sphere_only_scene: no
+     triangle, no light) at 64x64 @ 8 spp through the wavefront on the
+     all-triangles kernel and through the fused kernel, each bit-equal to
+     the plain wavefront (image and rays), finite, mean above 0. Last, `cli
+     render` as a subprocess, the same render two ways, --out-npy bit for
+     bit: 4 passes straight, and 2 passes with --checkpoint then --resume
+     --passes 4, on --engine fused and --engine wavefront; and one --no-nee
+     render, which must exit 0.
 
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
@@ -473,9 +486,18 @@ def train_phase(smi: str) -> dict:
     from pathtrace_tpu_torch.utils import rng
 
     # (a) the kernel against its plain version: camera rays at 256x256
-    # (65,536), bounce rays, NEE rays; a table of two tiles; and the train
-    # step's launch shape, one ray per recording lane (1,048,576 camera rays
-    # at 1024x1024, the sweep's first bounce)
+    # (65,536), bounce rays, NEE rays; tables of two and six tiles; the
+    # train step's launch shape, one ray per recording lane (1,048,576
+    # camera rays at 1024x1024, the sweep's first bounce); ragged ray
+    # counts; an empty table
+
+    def random_rays(count: int, seed: int):
+        g = torch.Generator().manual_seed(seed)
+        org = (torch.rand((count, 3), generator=g) * 70.0 - 25.0).to("cuda")
+        d = torch.nn.functional.normalize(torch.randn((count, 3), generator=g), dim=1)
+        return (org, d.to("cuda"), torch.zeros((count,), device="cuda"),
+                (torch.rand((count,), generator=g) * 80.0).to("cuda"))
+
     scene = procedural.cornell_box_scene(include_spheres=True).to("cuda")
     cam = procedural.default_camera(256, 256)
     sets = kd.probe_rays(scene, cam, cam.width * cam.height, seed=3)
@@ -484,17 +506,57 @@ def train_phase(smi: str) -> dict:
     big = procedural.sphere_mesh_scene(3).to("cuda")
     times.update(mt_compare(big, {"mesh camera": kd.probe_rays(big, cam, 4, seed=3)["camera"]},
                             "sphere_mesh3"))
+    tiles = procedural.sphere_mesh_scene(4).to("cuda")
+    times.update(mt_compare(tiles, {"mesh camera": kd.probe_rays(tiles, cam, 4, seed=3)["camera"]},
+                            "sphere_mesh4"))
     side = int(bench.TRAIN_LANES ** 0.5)
     lanes_set = kd.probe_rays(scene, procedural.default_camera(side, side), 4, seed=3)["camera"]
     times.update(mt_compare(scene, {"lanes camera": lanes_set}, "cornell+spheres"))
-    k_ms, p_ms, _ = times["lanes camera", "closest"]
+    times.update(mt_compare(scene, {f"random {n}": random_rays(n, n) for n in (1, 31, 65537)},
+                            "cornell+spheres"))
+    times.update(mt_compare(procedural.sphere_only_scene().to("cuda"),
+                            {"random": random_rays(4096, 7)}, "empty table"))
     max_err = max(e for _, _, e in times.values())
     r, n = lanes_set[0].shape[0], scene.num_tris
+    l_ms = times["lanes camera", "closest"][0]
     ops = mt_pair_ops(scene.tris.search_table, lanes_set[0], lanes_set[1]).sum().item()
     b_ms, b_by = bound(ops, r * (RAY_BYTES + HIT_BYTES) + n * 9 * 4)
-    print(f"[6 mt compare] bound of {r} rays x {n} triangles: {ops:.4e} FP32 operations "
+    print(f"[6 mt compare] bound of {r} camera rays x {n} triangles: {ops:.4e} FP32 operations "
           f"needed ({ops / (r * n):.2f} a pair), {b_ms:.6f} ms ({b_by}); the kernel takes "
-          f"{k_ms / b_ms:.1f}x its bound", flush=True)
+          f"{l_ms / b_ms:.1f}x its bound", flush=True)
+
+    # the kernel on its path's own inputs: every launch of one recording
+    # sweep of the train step, bit-equal to the plain version, timed as the
+    # mean of 20 sweeps, against the bound of the same rays
+    _, sweep = bench.train_sweep_searches("cuda")
+    table = scene.tris.search_table
+    p_ms = ops = nbytes = 0.0
+    for *args, mode in sweep:
+        k = mt.mt_closest(scene.tris, *args, mode)
+        p, ms = timed(lambda: mt.mt_closest_plain(scene.tris, *args, mode))
+        p_ms += ms
+        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+            fail(f"the all-triangles kernel disagrees with its plain version on a train-sweep "
+                 f"launch ({mode})")
+        ops += mt_pair_ops(table, args[0], args[1]).sum().item()
+        nbytes += args[0].shape[0] * (RAY_BYTES + HIT_BYTES) + tensor_bytes(table)
+
+    def run_sweep():
+        for *args, mode in sweep:
+            mt.mt_closest(scene.tris, *args, mode)
+
+    launches_a_sweep = len(sweep)
+    k_ms = timed_launches(run_sweep) / launches_a_sweep
+    p_ms /= launches_a_sweep
+    b_ms, b_by = bound(ops / launches_a_sweep, nbytes / launches_a_sweep)
+    print(f"[6 mt sweep] {launches_a_sweep} launches of one recording sweep at 128x128@64spp "
+          f"({sweep[0][0].shape[0]} rays x {n} triangles each), every one bit-equal: kernel "
+          f"{k_ms:.5f} ms a launch ({k_ms * launches_a_sweep:.4f} ms a sweep, mean of 20 sweeps), "
+          f"plain {p_ms:.3f} ms a launch; bound {b_ms:.6f} ms a launch ({b_by}; "
+          f"{ops / launches_a_sweep:.4e} FP32 operations needed, "
+          f"{ops / (launches_a_sweep * sweep[0][0].shape[0] * n):.2f} a pair); the kernel takes "
+          f"{k_ms / b_ms:.1f}x its bound; {mt_kernel.occupancy(n)} on {smi}", flush=True)
+    del sweep
 
     # (b) the training path: one step at the production shape after a warm-up
     step = bench.make_train_step("cuda")
@@ -559,6 +621,73 @@ def train_phase(smi: str) -> dict:
             "replaces": "pathtrace_tpu/ops/pallas/intersect_kernel.py:30",
             "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def parity_phase(smi: str) -> None:
+    """Phase 6, last: a scene of spheres alone through the all-triangles
+    kernel and the fused kernel, and `cli render`'s multi-pass flags."""
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
+    from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+    from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+    from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
+    from pathtrace_tpu_torch.utils import rng
+
+    scene = procedural.sphere_only_scene().to("cuda")
+    cam = procedural.default_camera(64, 64)
+    cfg, key, lanes, spp = IntegratorConfig(), rng.make_key(2), 4096, 8
+    mt_kernel.LAUNCHES = bk.LAUNCHES = 0
+    w_img, w_rays = render_wavefront_stats(scene, cam, spp, key, cfg, lanes, device="cuda")
+    f_img, f_rays = bk.render_wavefront_fused(scene, cam, spp, key, cfg, lanes=lanes,
+                                              chunk_spp=spp, device="cuda")
+    mt_launches, bk_launches = mt_kernel.LAUNCHES, bk.LAUNCHES
+    p_img, p_rays = render_wavefront_stats(scene, cam, spp, key, cfg, lanes, device="cuda",
+                                           search=mt.mt_closest_plain)
+    print(f"[6 spheres] sphere_only_scene ({scene.num_tris} triangles, {scene.num_spheres} "
+          f"spheres, {scene.num_lights} lights) {cam.width}x{cam.height}@{spp}spp lanes {lanes}: "
+          f"wavefront "
+          f"{mt_launches} all-triangles kernel launches, fused {bk_launches} bounce kernel "
+          f"launch(es); bit-equal to the plain wavefront: wavefront "
+          f"{torch.equal(w_img, p_img) and w_rays == p_rays}, fused "
+          f"{torch.equal(f_img, p_img) and f_rays == p_rays}; rays {p_rays}, mean "
+          f"{p_img.mean().item():.6f}", flush=True)
+    if mt_launches < 1 or bk_launches < 1:
+        fail("the sphere-only scene launched no kernel")
+    if not (torch.equal(w_img, p_img) and w_rays == p_rays and torch.equal(f_img, p_img)
+            and f_rays == p_rays):
+        fail("the sphere-only scene through the kernels is not bit-equal to its plain version")
+    if not bool(torch.isfinite(p_img).all()) or p_img.mean().item() <= 0.0:
+        fail("the sphere-only image is not finite or is black")
+
+    # `cli render` as a user runs it: 4 passes straight against 2 passes
+    # with a checkpoint resumed to 4 (the same samples per pass, so the same
+    # keys), --out-npy bit for bit; and --no-nee
+    base = ["--preset", "cornell64", "--width", "64", "--height", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine in ("fused", "wavefront"):
+            out = {}
+            for name, flags in (("straight", ["--spp", "16", "--passes", "4"]),
+                                ("first", ["--spp", "8", "--passes", "2", "--checkpoint"]),
+                                ("resumed", ["--spp", "16", "--passes", "4", "--resume",
+                                             "--checkpoint"])):
+                if flags[-1] == "--checkpoint":
+                    flags = flags + [os.path.join(tmp, f"{engine}.npz")]
+                npy = os.path.join(tmp, f"{engine}_{name}.npy")
+                run_cli([*base, "--engine", engine, *flags, "--out-npy", npy],
+                        os.path.join(tmp, f"{engine}_{name}.png"), 64, "6 cli resume")
+                out[name] = np.load(npy)
+            same = np.array_equal(out["straight"], out["resumed"])
+            print(f"[6 cli resume] --engine {engine}: 2 passes + --resume to 4 bit-equal to 4 "
+                  f"passes straight: {same}; mean {out['straight'].mean():.6f} on {smi}",
+                  flush=True)
+            if not same or not np.isfinite(out["straight"]).all():
+                fail(f"a resumed render differs from the uninterrupted one (--engine {engine})")
+        run_cli([*base, "--spp", "8", "--no-nee"], os.path.join(tmp, "no_nee.png"), 64,
+                "6 cli resume")
 
 
 def main() -> int:
@@ -718,6 +847,7 @@ def main() -> int:
 
     kd_entry = mesh_phase(smi)
     mt_entry = train_phase(smi)
+    parity_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -105,6 +105,26 @@ def make_train_step(dev, w: int = 128, h: int = 128, lanes: int = TRAIN_LANES,
     return step
 
 
+def train_sweep_searches(dev, spp: int = 64, w: int = 128, h: int = 128):
+    """(scene, [(org, dirn, t_min, t_max, mode), ...]): the inputs of every
+    all-triangles search of one recording sweep of the train step (the
+    kernel's launch shapes on the training path), captured by wrapping its
+    search; each tuple holds copies, about 32 MB at 1,048,576 lanes."""
+    from pathtrace_tpu_torch.diff.wavetape import record_paths_wavefront
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+
+    scene, camera, _, cfg, key = train_problem(dev, w, h)
+    calls = []
+
+    def search(tris, org, dirn, t_min, t_max, mode):
+        calls.append((org.clone(), dirn.clone(), t_min.clone(), t_max.clone(), mode))
+        return mt.mt_closest(tris, org, dirn, t_min, t_max, mode)
+
+    record_paths_wavefront(scene, camera, spp, key, cfg, min(TRAIN_LANES, w * h * spp),
+                           search=search)
+    return scene, calls
+
+
 def check_train_output(loss, grads, img) -> None:
     """Raise unless the step's loss, grads and image are finite."""
     import torch

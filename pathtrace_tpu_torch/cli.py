@@ -2,6 +2,7 @@
 subcommands.
 
     python -m pathtrace_tpu_torch.cli render --preset cornell64 --engine fused --out out.png
+    python -m pathtrace_tpu_torch.cli render --passes 4 --checkpoint ck.npz --resume
     python -m pathtrace_tpu_torch.cli grad-check --preset cornell64 --width 16 --height 16 --spp 4
 
 The device defaults to cuda; without a GPU the command fails rather than
@@ -18,10 +19,13 @@ import time
 
 
 def cmd_render(args) -> int:
+    import dataclasses
+
     import torch
 
     from pathtrace_tpu_torch.integrator.render import render
     from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_chunked
+    from pathtrace_tpu_torch.io import checkpoint as ckpt
     from pathtrace_tpu_torch.io import image as imageio
     from pathtrace_tpu_torch.models import procedural
     from pathtrace_tpu_torch.models.presets import build_preset_scene, get_preset
@@ -40,10 +44,25 @@ def cmd_render(args) -> int:
     passes = max(args.passes, 1)
     spp_per_pass = max(spp // passes, 1)
     cfg = preset.cfg
+    if args.hemisphere != cfg.hemisphere:
+        cfg = dataclasses.replace(cfg, hemisphere=args.hemisphere)
+    if args.no_nee:
+        cfg = dataclasses.replace(cfg, nee=False)
 
+    start_pass = 0
     accum = torch.zeros((h, w, 3), device=dev)
+    if args.resume and args.checkpoint:
+        try:
+            state = ckpt.load_state(args.checkpoint)
+        except FileNotFoundError:
+            pass  # nothing to resume: start at pass 0
+        else:
+            accum = torch.as_tensor(state["accum_image"], device=dev)
+            start_pass = state["passes_done"]
+            print(f"[resume] at pass {start_pass}", file=sys.stderr)
+
     key = rng.make_key(args.seed)
-    for p in range(passes):
+    for p in range(start_pass, passes):
         t0 = time.perf_counter()
         pass_key = rng.iter_key(key, 1000 + p)
         if args.engine == "fused":
@@ -63,6 +82,8 @@ def cmd_render(args) -> int:
         print(f"[pass {p}] {spp_per_pass}spp in {dt:.2f}s", file=sys.stderr)
         if args.out:
             imageio.write_png(args.out, accum / (p + 1))
+        if args.checkpoint:
+            ckpt.save_state(args.checkpoint, accum, p + 1, args.seed, spp_per_pass)
     if args.out_npy:
         imageio.write_npy(args.out_npy, accum / passes)
     print(json.dumps({"passes": passes, "spp": spp_per_pass * passes,
@@ -138,8 +159,17 @@ def main(argv=None) -> int:
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--out", default="result.png")
     pr.add_argument("--out-npy", default="")
+    pr.add_argument("--checkpoint", default="",
+                    help=".npz written after each pass (io/checkpoint.py)")
+    pr.add_argument("--resume", action="store_true",
+                    help="continue from --checkpoint at the pass it reached")
     pr.add_argument("--engine", default="wavefront",
                     choices=("wavefront", "megakernel", "fused"))
+    pr.add_argument("--hemisphere", default="cosine", choices=("cosine", "uniform"),
+                    help="diffuse hemisphere sampling A/B (Bxdf.cuh:23-41); the fused "
+                         "engine samples cosine only and raises on uniform")
+    pr.add_argument("--no-nee", dest="no_nee", action="store_true",
+                    help="disable next-event estimation (README.md:56-58 A/B)")
     pr.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     pr.set_defaults(fn=cmd_render)

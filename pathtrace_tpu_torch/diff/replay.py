@@ -33,7 +33,7 @@ from pathtrace_tpu_torch.integrator.megakernel import (default_raycast, default_
                                                        shadow_visibility)
 from pathtrace_tpu_torch.models.scene import Material, Scene
 from pathtrace_tpu_torch.ops.intersect import (BIG_T, HitRecord, _gather_sphere_hit,
-                                               _gather_tri_hit, mt_gather)
+                                               _gather_tri_hit, mt_gather, no_tri_hit)
 from pathtrace_tpu_torch.utils import math3, rng
 from pathtrace_tpu_torch.utils.device import resolve_device
 
@@ -118,19 +118,22 @@ def _sphere_t_at(scene: Scene, idx, org, dirn, t_min):
 
 def _replay_hit(scene: Scene, org, dirn, t_min, rec) -> HitRecord:
     """The full HitRecord rebuilt differentiably from a bounce record
-    (replay.py:145-199). The port renders only scenes with triangles (the
-    searches take a non-empty table), so the no-triangle branch is gone."""
+    (replay.py:145-199)."""
     r = org.shape[0]
     hit, use_sphere, pid = rec["hit"], rec["sph"], rec["pid"]
     tri_sel = hit & ~use_sphere
     zero = torch.zeros((r,), device=org.device)
     big = torch.full_like(zero, BIG_T)
 
-    safe_tri = torch.where(tri_sel, pid, torch.zeros_like(pid))
-    t_tri, u, v, _ = mt_gather(scene.tris, safe_tri, org, dirn, t_min, big)
-    tp, tn, tt, tb, tf, tuv = _gather_tri_hit(
-        scene, org, dirn, torch.where(tri_sel, t_tri, zero), u, v, safe_tri)
-    tmat = scene.mat.gather(safe_tri)
+    if scene.num_tris > 0:
+        safe_tri = torch.where(tri_sel, pid, torch.zeros_like(pid))
+        t_tri, u, v, _ = mt_gather(scene.tris, safe_tri, org, dirn, t_min, big)
+        tp, tn, tt, tb, tf, tuv = _gather_tri_hit(
+            scene, org, dirn, torch.where(tri_sel, t_tri, zero), u, v, safe_tri)
+        tmat = scene.mat.gather(safe_tri)
+    else:
+        t_tri = zero
+        tp, tn, tt, tb, tf, tuv, tmat = no_tri_hit(r, org.device)
     t_final = torch.where(tri_sel, t_tri, big)
     if scene.num_spheres == 0:
         return HitRecord(hit=hit, t=t_final, p=tp, normal=tn, tangent=tt, bitangent=tb,

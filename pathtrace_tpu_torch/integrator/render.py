@@ -7,6 +7,8 @@ Ray id convention matches the reference's stream layout
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from pathtrace_tpu_torch.core.camera import Camera
@@ -46,3 +48,26 @@ def render(scene: Scene, camera: Camera, spp: int, base_key,
         accum = accum + render_sample(scene, camera, s, base_key, cfg, raycast_fn,
                                       sample_mat_fn)
     return (accum / spp).reshape(camera.height, camera.width, 3)
+
+
+def render_image(scene: Scene, camera: Camera, spp: int, seed: int = 0,
+                 cfg: IntegratorConfig = IntegratorConfig(), raycast_fn=None,
+                 passes: int = 1, progressive_path: Optional[str] = None, *,
+                 device="cuda") -> torch.Tensor:
+    """Multi-pass render (JAX render.py:73-94): pass p renders spp // passes
+    samples with key rng.iter_key(make_key(seed), 1000 + p), the running
+    mean is written to progressive_path as a PNG after each pass, and the
+    (H, W, 3) mean over passes is returned (the reference's 8-pass loop with
+    temp.png after each pass, pathtracer.cu:236-246)."""
+    from pathtrace_tpu_torch.io import image as imageio
+
+    dev = resolve_device(device)
+    key = rng.make_key(seed)
+    accum = torch.zeros((camera.height, camera.width, 3), device=dev)
+    spp_per_pass = max(spp // passes, 1)
+    for p in range(passes):
+        accum = accum + render(scene, camera, spp_per_pass, rng.iter_key(key, 1000 + p), cfg,
+                               raycast_fn, device=dev)
+        if progressive_path is not None:
+            imageio.write_png(progressive_path, accum / (p + 1))
+    return accum / passes

@@ -51,3 +51,7 @@ def write_png(path: str, linear_image, tonemap: bool = True) -> None:
 
 def write_npy(path: str, linear_image) -> None:
     np.save(path, torch.as_tensor(linear_image, dtype=torch.float32).cpu().numpy())
+
+
+def read_npy(path: str) -> np.ndarray:
+    return np.load(path)

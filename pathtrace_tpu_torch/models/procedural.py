@@ -259,6 +259,20 @@ def glass_scene(light_emit=LIGHT_EMIT) -> Scene:
     return Scene.build(tris, mat, spheres)
 
 
+def sphere_only_scene() -> Scene:
+    """A scene without triangles, as the JSON loader builds a document of
+    spheres alone (JAX json_io.py:105-107): an emissive sphere and a diffuse
+    one in front of default_camera. No triangle is emissive, so the scene
+    has no lights and NEE is skipped; light arrives by BSDF sampling."""
+    tris = Triangles.from_vertices(np.zeros((0, 3, 3), np.float32),
+                                   np.zeros((0, 3, 3), np.float32))
+    lamp = Material.make(1, emittance=(4.0, 4.0, 4.0))
+    diffuse = Material.make(1, albedo=(0.8, 0.3, 0.3), roughness=1.0)
+    spheres = Spheres(center=torch.tensor([[0.0, 20.0, 0.0], [14.0, 10.0, 8.0]]),
+                      radius=torch.tensor([10.0, 7.0]), mat=Material.stack([lamp, diffuse]))
+    return Scene.build(tris, Material.make(0), spheres)
+
+
 def default_camera(width=512, height=512) -> Camera:
     """Viewer startup pose: pos (0,20,60), rotation (0,90,0), fovy 45
     (renderer.cpp:19, camera.cpp:7-14)."""

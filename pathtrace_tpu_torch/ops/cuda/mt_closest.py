@@ -5,7 +5,9 @@ the kernel's dtypes and shapes, one device), allocates the outputs, and
 launches one thread per ray on the current stream. It raises on anything
 else; it never falls back to the plain version
 (ops/mt_closest.py::mt_closest_plain), which ops/mt_closest.py::mt_closest
-runs for CPU tensors.
+runs for CPU tensors. An empty (0, 9) table, a scene without triangles, is
+launched like any other: the kernel scans no row and writes every ray a
+miss.
 
 The library is built by nvcc at first launch (ops/cuda/build.py);
 importing this module needs neither nvcc nor a GPU.
@@ -47,6 +49,23 @@ def _closest_fn():
     return fn
 
 
+def occupancy(num_tris: int) -> dict:
+    """The closest-mode kernel as built and as the current card holds it
+    for a table of num_tris rows: registers and local-memory bytes (stack
+    frame and spills) a thread, resident blocks and warps per SM, threads a
+    block."""
+    lib = build.load_library()
+    out = (ctypes.c_int * 4)()
+    lib.pt_mt_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.pt_mt_occupancy.restype = ctypes.c_int
+    err = lib.pt_mt_occupancy(num_tris, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"all-triangles kernel occupancy query failed: cudaError {err}")
+    regs, local, blocks, block = out
+    return {"registers": regs, "local_bytes": local, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * block // 32, "block": block}
+
+
 def launch(table, org, dirn, t_min, t_max, mode: str = "closest"):
     """One launch: (hit bool, t, idx int32, u, v), each (R,), of the rays
     against the (T, 9) triangle table [v0 | e1 | e2] (ops/mt_closest.py
@@ -58,8 +77,6 @@ def launch(table, org, dirn, t_min, t_max, mode: str = "closest"):
     if dev.type != "cuda":
         raise ValueError(f"the all-triangles kernel runs on CUDA tensors, got {dev}")
     r, n = org.shape[0], table.shape[0]
-    if n == 0:
-        raise ValueError("the triangle table is empty")
     build.check_tensor("table", table, torch.float32, (n, TRI_STRIDE), dev)
     build.check_tensor("org", org, torch.float32, (r, 3), dev)
     build.check_tensor("dirn", dirn, torch.float32, (r, 3), dev)

@@ -169,6 +169,18 @@ def mt_gather(tris, pid: torch.Tensor, org, dirn, t_min, t_max):
     return t, u * inv_det, v * inv_det, valid
 
 
+def no_tri_hit(r: int, dev):
+    """The triangle side of a hit in a scene without triangles (JAX
+    intersect.py:285-290): zero position and frame, front_face False, uv 0
+    and the default material; hits then come from the spheres alone."""
+    z3 = torch.zeros((r, 3), device=dev)
+    one = Material.make(1)
+    mat = Material(*[getattr(one, f.name).to(dev) for f in dataclasses.fields(Material)])
+    return (z3, z3, z3, z3, torch.zeros((r,), dtype=torch.bool, device=dev),
+            torch.zeros((r, 2), device=dev),
+            mat.gather(torch.zeros((r,), dtype=torch.int32, device=dev)))
+
+
 def finalize_hit(scene: Scene, org, dirn, t_min, t_max,
                  tri_hit, best_t, tri_idx, tri_u, tri_v) -> HitRecord:
     """Merge the triangle closest hit with the sphere scan and gather the
@@ -189,11 +201,14 @@ def finalize_hit(scene: Scene, org, dirn, t_min, t_max,
                           torch.where(tri_hit, best_t, torch.full_like(best_t, BIG_T)))
     zero = torch.zeros_like(best_t)
 
-    safe_tri = torch.where(tri_hit, tri_idx, torch.zeros_like(tri_idx))
-    tp, tn, tt, tb, tf, tuv = _gather_tri_hit(
-        scene, org, dirn, torch.where(tri_hit, best_t, zero), tri_u, tri_v,
-        safe_tri)
-    tmat = scene.mat.gather(safe_tri)
+    if scene.num_tris > 0:
+        safe_tri = torch.where(tri_hit, tri_idx, torch.zeros_like(tri_idx))
+        tp, tn, tt, tb, tf, tuv = _gather_tri_hit(
+            scene, org, dirn, torch.where(tri_hit, best_t, zero), tri_u, tri_v,
+            safe_tri)
+        tmat = scene.mat.gather(safe_tri)
+    else:
+        tp, tn, tt, tb, tf, tuv, tmat = no_tri_hit(r, dev)
     if scene.num_spheres == 0:
         return HitRecord(hit=hit, t=t_final, p=tp, normal=tn, tangent=tt,
                          bitangent=tb, front_face=tf, uv=tuv, prim_id=tri_idx,
@@ -230,17 +245,27 @@ def finalize_hit_at(scene: Scene, org, dirn, t_min, t_max,
     differentiably at the chosen triangle with mt_gather (raycast_matmul,
     mt_matmul.py:184-204), so gradients flow through org and dirn as they do
     through raycast_brute's all-pairs test; the values are the search's."""
-    t2, u2, v2, _ = mt_gather(scene.tris, tri_idx, org, dirn, t_min,
-                              torch.full_like(t_max, BIG_T))
-    best_t = torch.where(tri_hit, t2, best_t)
-    tri_u = torch.where(tri_hit, u2, tri_u)
-    tri_v = torch.where(tri_hit, v2, tri_v)
+    if scene.num_tris > 0:
+        t2, u2, v2, _ = mt_gather(scene.tris, tri_idx, org, dirn, t_min,
+                                  torch.full_like(t_max, BIG_T))
+        best_t = torch.where(tri_hit, t2, best_t)
+        tri_u = torch.where(tri_hit, u2, tri_u)
+        tri_v = torch.where(tri_hit, v2, tri_v)
     return finalize_hit(scene, org, dirn, t_min, t_max, tri_hit, best_t, tri_idx,
                         tri_u, tri_v)
 
 
 def _closest_tri(scene: Scene, org, dirn, t_min, t_max):
+    """(best_t, tri_idx, tri_hit, u, v) of the all-pairs search; a scene
+    without triangles gives every ray a miss with idx 0 and (R, 1) zero
+    barycentrics (JAX raycast_brute's initial values)."""
     tr = scene.tris
+    if scene.num_tris == 0:
+        r = org.shape[0]
+        zero = torch.zeros((r, 1), device=org.device)
+        return (torch.full((r,), _INF, device=org.device),
+                torch.zeros((r,), dtype=torch.int32, device=org.device),
+                torch.zeros((r,), dtype=torch.bool, device=org.device), zero, zero)
     t, valid, u, v = intersect_tris_all(tr.v0, tr.e1, tr.e2, org, dirn, t_min, t_max)
     best_t, tri_idx, tri_hit = closest_masked(
         torch.where(valid, t, torch.full_like(t, _INF)))

@@ -11,8 +11,10 @@ triangle of the scene:
 - equal t resolves to the lowest index (closest_masked), so the result
   equals raycast_brute's bit for bit;
 - (hit, t, idx, u, v) with normalized barycentrics; a miss gives t = 0,
-  u = v = 0 and idx = T - 1 (brute's closest_masked, as mt_matmul_closest;
-  the Pallas kernel gives 0 there: idx carries no meaning on a miss).
+  u = v = 0 and idx = max(T - 1, 0) (brute's closest_masked, as
+  mt_matmul_closest; the Pallas kernel gives 0 there: idx carries no
+  meaning on a miss). An empty (0, 9) table gives every ray a miss with
+  idx 0, raycast_brute's value for a scene without triangles.
   Shadow mode selects the same winner and leaves u = v = 0.
 
 On CPU tensors `mt_closest` runs the plain version below; on CUDA tensors
@@ -64,6 +66,10 @@ def mt_closest_plain(tris: Triangles, org, dirn, t_min, t_max, mode: str = "clos
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     table = tris.search_table
+    if table.shape[0] == 0:
+        zero = torch.zeros((org.shape[0],), device=org.device)
+        return (torch.zeros_like(zero, dtype=torch.bool), zero,
+                torch.zeros_like(zero, dtype=torch.int32), zero.clone(), zero.clone())
     rows = max(1, PAIR_CHUNK // table.shape[0])
     parts = [_closest_rows(table, org[i:i + rows], dirn[i:i + rows], t_min[i:i + rows],
                            t_max[i:i + rows], mode == "closest")

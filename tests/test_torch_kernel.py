@@ -32,12 +32,18 @@ and rays; and at the bar kept from before, > 99% of pixels within 1e-3,
 rays within 1e-5.
 
 The all-triangles kernel (csrc/mt_closest.cu) against mt_closest_plain, in
-both modes, on random rays (Cornell + spheres, 38 triangles) and on the
+both modes, on random rays (Cornell + spheres, 38 triangles), on the
 1,294-triangle sphere_mesh_scene(3), whose table spans two shared-memory
-tiles: the same float32 operations in the same order with the same tie
-rule, so hit and idx are bit-equal, and t/u/v bit-equal where hit. The
+tiles, and on the 5,134-triangle sphere_mesh_scene(4) (six tiles); at
+ray counts 1, 31, 129 and 65,537 (a last block with idle threads, a chunk
+of rows shorter than a mask); and on an empty table (a scene without
+triangles: every ray a miss, idx 0): the same float32 operations in the
+same order with the same tie rule, so hit and idx are bit-equal, and t/u/v
+bit-equal where hit. Each call is one launch, the empty table's too. The
 fused kernel's reference wavefront takes the plain search too, so it runs
-no kernel.
+no kernel. A scene of spheres alone renders through the fused kernel (no
+triangle, no light) and through the wavefront on the all-triangles kernel,
+each bit-equal to its plain version.
 
 The bounce kernel's schedule (one loop per lane over bounce iterations,
 paths regenerated in place) against the plain wavefront at the same lanes,
@@ -77,6 +83,7 @@ SCENES = {
     "planar": lambda: procedural.cornell_box_scene(),
     "spheres": lambda: procedural.cornell_box_scene(include_spheres=True),
     "glass": lambda: procedural.glass_scene(),  # the pure-refractive lobe
+    "sphere_only": procedural.sphere_only_scene,  # no triangle, no light
 }
 
 
@@ -224,33 +231,80 @@ def test_kd_kernel_wavefront_bit_equal(cuda, scene_name):
 MT_SCENES = {
     "spheres": lambda: procedural.cornell_box_scene(include_spheres=True),
     "sphere_mesh3": lambda: procedural.sphere_mesh_scene(3),  # 1,294 triangles, two tiles
+    "sphere_mesh4": lambda: procedural.sphere_mesh_scene(4),  # 5,134 triangles, six tiles
 }
+
+
+def _random_rays(n, dev, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    org = (torch.rand((n, 3), generator=g) * 70.0 - 25.0).to(dev)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(dev)
+    return org, d, torch.zeros((n,), device=dev), (torch.rand((n,), generator=g) * 80.0).to(dev)
+
+
+def _mt_check(tris, name, args, mode, hit_floor=0.1):
+    """One launch through the entry the paths call, bit-equal to the plain
+    version: hit and idx everywhere, t/u/v where hit."""
+    launches = mt_kernel.LAUNCHES
+    k_hit, *k = mt.mt_closest(tris, *args, mode)
+    torch.cuda.synchronize()
+    assert mt_kernel.LAUNCHES == launches + 1
+    p_hit, *p = mt.mt_closest_plain(tris, *args, mode)
+    assert torch.equal(k_hit, p_hit), name
+    assert torch.equal(k[1], p[1]), name
+    assert p_hit.float().mean().item() >= hit_floor, name
+    for a, b in zip(k, p):
+        assert torch.equal(a[p_hit], b[p_hit]), name
+    if mode == "shadow":
+        assert not bool(k[2].any()) and not bool(k[3].any())
 
 
 @pytest.mark.parametrize("scene_name", sorted(MT_SCENES))
 @pytest.mark.parametrize("mode", mt.MODES)
 def test_mt_kernel_matches_plain(cuda, scene_name, mode):
     scene = MT_SCENES[scene_name]().to(cuda)
-    g = torch.Generator().manual_seed(6)
-    n = 5000  # not a multiple of the block: the last block has idle threads
-    org = (torch.rand((n, 3), generator=g) * 70.0 - 25.0).to(cuda)
-    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=1).to(cuda)
-    t_min = torch.zeros((n,), device=cuda)
-    t_max = (torch.rand((n,), generator=g) * 80.0).to(cuda)
     rays = kd.probe_rays(scene, procedural.default_camera(64, 64), 4096, seed=3)
-    rays["random"] = (org, d, t_min, t_max)
+    rays["random"] = _random_rays(5000, cuda)  # the last block has idle threads
     for name, args in rays.items():
-        launches = mt_kernel.LAUNCHES
-        k_hit, *k = mt.mt_closest(scene.tris, *args, mode)
-        torch.cuda.synchronize()
-        assert mt_kernel.LAUNCHES == launches + 1
-        p_hit, *p = mt.mt_closest_plain(scene.tris, *args, mode)
-        assert torch.equal(k_hit, p_hit), name
-        assert p_hit.float().mean().item() > 0.1, name
-        for a, b in zip(k, p):
-            assert torch.equal(a[p_hit], b[p_hit]), name
-        if mode == "shadow":
-            assert not bool(k[2].any()) and not bool(k[3].any())
+        _mt_check(scene.tris, name, args, mode)
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 65537])
+@pytest.mark.parametrize("mode", mt.MODES)
+def test_mt_kernel_ragged_ray_counts(cuda, n, mode):
+    scene = MT_SCENES["spheres"]().to(cuda)
+    _mt_check(scene.tris, f"{n} rays", _random_rays(n, cuda, seed=n), mode, hit_floor=0.0)
+
+
+@pytest.mark.parametrize("mode", mt.MODES)
+def test_mt_kernel_empty_table(cuda, mode):
+    """A scene without triangles: one launch, every ray a miss with idx 0."""
+    tris = procedural.sphere_only_scene().to(cuda).tris
+    assert tris.search_table.shape == (0, mt_kernel.TRI_STRIDE)
+    args = _random_rays(4096, cuda)
+    _mt_check(tris, "empty table", args, mode, hit_floor=0.0)
+    hit, t, idx, u, v = mt.mt_closest(tris, *args, mode)
+    assert not hit.any() and not idx.any() and not t.any() and not u.any() and not v.any()
+
+
+def test_sphere_only_scene_kernels_match_plain(cuda):
+    """Spheres alone through the wavefront on the all-triangles kernel (an
+    empty table each launch) and through the fused kernel (no triangle, no
+    light): each bit-equal to its plain version."""
+    scene = procedural.sphere_only_scene().to(cuda)
+    cam = procedural.default_camera(32, 32)
+    key = rng.make_key(4)
+    launches = mt_kernel.LAUNCHES
+    a, rays_a = render_wavefront_stats(scene, cam, 4, key, lanes=1024, device=cuda)
+    assert mt_kernel.LAUNCHES > launches
+    b, rays_b = render_wavefront_stats(scene, cam, 4, key, lanes=1024, device=cuda,
+                                       search=mt.mt_closest_plain)
+    assert torch.equal(a, b) and rays_a == rays_b and b.mean().item() > 0.0
+    launches = bk.LAUNCHES
+    c, rays_c = bk.render_wavefront_fused(scene, cam, 4, key, lanes=1024, chunk_spp=4,
+                                          device=cuda)
+    assert bk.LAUNCHES == launches + 1
+    assert torch.equal(c, b) and rays_c == rays_b
 
 
 def test_mt_kernel_train_step_matches_plain(cuda):
@@ -282,6 +336,7 @@ BIT_EQUAL_CASES = {
     # the last path ids lie just below 2**31 - 1024; id + lanes passes 2**31
     "path_ids_past_2_31": ("spheres", 32, 4, 2048, {}, 2 ** 31 // 1024 - 4 - 1),
     "default_lanes_64": ("spheres", 64, 64, None, {}, 0),
+    "sphere_only": ("sphere_only", 32, 8, 1024, {}, 0),
 }
 
 
