@@ -67,6 +67,26 @@ benchmarks). Phases, one line each (or one per comparison):
      bit: 4 passes straight, and 2 passes with --checkpoint then --resume
      --passes 4, on --engine fused and --engine wavefront; and one --no-nee
      render, which must exit 0.
+  7. pixel-slice sharding (parallel/mesh.py) on a NCCL group of world size
+     1: render_fused_sharded at the main path's width (Cornell + spheres
+     256x256 @ 1024 spp, one launch of the bounce kernel keyed by global
+     path ids: launch count, seconds, paths/s, mean within 2% of phase 4's);
+     the slice bodies for N = 2 and 4 run in turn at 256x256 @ 64 spp with
+     65,536 / N lanes, bit-equal to the whole film and rays; the kernel on
+     slices with pix_offset != 0 at 32x32 @ 16 spp against its plain
+     version, bit-equal; its registers and warps per SM no worse than before
+     pixel slices (108 and 16 on sm_90a).
+     train_step_wavetape_sharded at 128x128 @ 64 spp (all-triangles kernel
+     launches, seconds) bit-equal to train_step_wavetape in loss, grads and
+     image. render_wavefront_sharded on sphere_mesh_scene(6) with KD cells
+     (multihost1024's scene) at 256x256 @ 8 spp (KD kernel launches,
+     paths/s), its 2 slices bit-equal. The native SAH BVH build of that
+     scene (seconds); raycast_bvh against the all-triangles kernel on
+     65,536 Cornell camera rays (the same hits, spheres and t; exact ties
+     resolved the other way counted); a JSON scene (walls, box, icosphere,
+     sphere, assets/blob82k.obj) loaded with its BVH and KD cells and
+     rendered at 64x64 @ 16 spp through the KD kernel, bit-equal to the
+     plain search.
 
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
@@ -109,6 +129,11 @@ HBM_RATE = 3.35e12  # bytes/s
 # the bound stays a least time.
 MT_STAGE_OPS = (14, 8, 15, 7)
 SPHERE_OPS, SLAB_OPS = 28, 12
+# The bounce kernel as ptxas built it for sm_90a before it took pixel slices
+# (global path ids): a thread's registers and the resident warps per SM on
+# the main path's pack. The slice arithmetic must not cost the whole-image
+# launch either.
+B1_MAX_REGISTERS, B1_MIN_WARPS_PER_SM = 108, 16
 # One bounce's shading of a gltfpbr surface (the room's walls), counted by
 # hand from csrc/bsdf.cuh and csrc/bounce_kernel.cu function by function:
 # + - * / and sqrt count 1, and so does each special function (powf, sinf,
@@ -690,6 +715,205 @@ def parity_phase(smi: str) -> None:
                 "6 cli resume")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_phase(smi: str, main_mean: float, main_occ: dict) -> None:
+    """Phase 7: pixel-slice sharding (parallel/mesh.py) on a NCCL group of
+    world size 1, N-slice splits run in turn on the card, the BVH and a
+    JSON scene."""
+    import json as json_mod
+
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch import bench, native
+    from pathtrace_tpu_torch.accel.bvh import build_bvh
+    from pathtrace_tpu_torch.accel.traverse import raycast_bvh
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront, render_wavefront_stats
+    from pathtrace_tpu_torch.models import json_io, procedural
+    from pathtrace_tpu_torch.ops import kd_raycast as kd
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+    from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+    from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
+    from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
+    from pathtrace_tpu_torch.parallel import distributed
+    from pathtrace_tpu_torch.parallel import mesh as M
+    from pathtrace_tpu_torch.utils import rng
+
+    cfg = IntegratorConfig()
+    distributed.initialize(f"tcp://localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        ray_mesh = distributed.global_ray_mesh("cuda")
+        print(f"[7 shard] process group {torch.distributed.get_backend()} world size "
+              f"{ray_mesh.world_size}, rank {ray_mesh.rank} on {ray_mesh.device}", flush=True)
+        if torch.distributed.get_backend() != "nccl":
+            fail("the sharded path did not get a NCCL group")
+
+        # the main path's width through render_fused_sharded: B1 keyed by
+        # global path ids, one launch over the rank's slice
+        scene = procedural.cornell_box_scene(include_spheres=True).to("cuda")
+        cam = procedural.default_camera(256, 256)
+        key = rng.iter_key(rng.make_key(0), 1000)
+        lanes, spp = bk.auto_fused_config(256 * 256), 1024
+        # warm-up: the group's first collective sets up its NCCL communicator
+        # (on an H100 80GB HBM3 a cold first call took 0.766 s, a warm one 0.33 s)
+        M.render_fused_sharded(scene, cam, 4, key, ray_mesh, cfg, lanes)
+        bk.LAUNCHES = 0
+        (img, rays), ms = timed(lambda: M.render_fused_sharded(scene, cam, spp, key, ray_mesh,
+                                                               cfg, lanes))
+        launches = bk.LAUNCHES
+        paths = 256 * 256 * spp
+        rel = abs(img.mean().item() - main_mean) / main_mean
+        print(f"[7 shard] render_fused_sharded cornell+spheres 256x256@{spp}spp lanes {lanes}, "
+              f"world size 1: {launches} bounce kernel launch(es), {ms / 1e3:.4f} s, "
+              f"{paths / ms * 1e3 / 1e6:.3f}M paths/s, {rays / ms * 1e3 / 1e6:.3f}M rays/s, "
+              f"mean rel diff vs phase 4's chunked render {rel:.3e} on {smi}", flush=True)
+        if launches < 1 or not bool(torch.isfinite(img).all()) or rel > 0.02:
+            fail("render_fused_sharded launched no kernel, or its image is not finite or "
+                 "not within 2% of the main path's")
+
+        # N slices run in turn on the card against the whole render, bit for bit
+        whole, w_rays = M.render_fused_shard(scene, cam, 64, key, 0, 1, cfg, 65536)
+        for n in (2, 4):
+            parts = [M.render_fused_shard(scene, cam, 64, key, i, n, cfg, 65536 // n)
+                     for i in range(n)]
+            same = (torch.equal(torch.cat([p[0] for p in parts]), whole)
+                    and sum(p[1] for p in parts) == w_rays)
+            print(f"[7 shard] 256x256@64spp in {n} slices of lanes {65536 // n}: bit-equal to "
+                  f"the 1-slice film and rays: {same}", flush=True)
+            if not same:
+                fail(f"{n} slices of kernel B1 differ from the whole render")
+
+        # B1 on slices with pix_offset != 0 against its plain version
+        cam32 = procedural.default_camera(32, 32)
+        for shard, n, lanes32 in ((1, 2, 256), (3, 4, 512)):
+            k_img, k_rays = M.render_fused_shard(scene, cam32, 16, key, shard, n, cfg, lanes32)
+            npl = 1024 // n
+            p_img, p_rays = _run_wavefront(scene, cam32, 16, key, cfg, lanes32,
+                                           pix_offset=shard * npl, num_pix_local=npl,
+                                           search=mt.mt_closest_plain)
+            err = (k_img - p_img).abs().max().item()
+            print(f"[7 shard] B1 vs plain, 32x32@16spp slice {shard} of {n} (pix_offset "
+                  f"{shard * npl}, lanes {lanes32}): max abs err {err:.3e}, rays {k_rays} vs "
+                  f"{p_rays}", flush=True)
+            if err != 0.0 or k_rays != p_rays:
+                fail(f"B1 on slice {shard} of {n} is not bit-equal to its plain version")
+        print(f"[7 shard] B1 with global path ids: {main_occ['registers']} registers, "
+              f"{main_occ['warps_per_sm']} warps per SM (phase 4's build); before pixel "
+              f"slices: {B1_MAX_REGISTERS}, {B1_MIN_WARPS_PER_SM}", flush=True)
+        if (main_occ["registers"] > B1_MAX_REGISTERS
+                or main_occ["warps_per_sm"] < B1_MIN_WARPS_PER_SM):
+            fail("the bounce kernel with global path ids takes more registers or holds fewer "
+                 "warps per SM than before pixel slices")
+
+        # the production train step, world size 1, against the one-device step
+        b_scene, b_cam, target, b_cfg, b_key = bench.train_problem("cuda")
+        mt_kernel.LAUNCHES = 0
+        (s_loss, s_grads, s_img), s_ms = timed(lambda: M.train_step_wavetape_sharded(
+            b_scene, b_cam, target, 64, b_key, ray_mesh, b_cfg, bench.TRAIN_LANES,
+            bench.TRAIN_CHUNK))
+        mt_launches = mt_kernel.LAUNCHES
+        o_loss, o_grads, o_img = bench.make_train_step("cuda")(64)
+        same = (torch.equal(s_loss, o_loss) and torch.equal(s_img, o_img)
+                and max(grad_errors(o_grads, s_grads).values()) == 0.0)
+        print(f"[7 train] train_step_wavetape_sharded 128x128@64spp world size 1: "
+              f"{mt_launches} all-triangles kernel launches, {s_ms / 1e3:.4f} s; bit-equal to "
+              f"train_step_wavetape in loss, grads and image: {same}", flush=True)
+        if mt_launches < 1 or not same:
+            fail("the sharded train step launched no B3 or differs from the one-device step")
+
+        # the mesh path sharded: multihost1024's scene through the KD kernel
+        t0 = time.perf_counter()
+        mesh_scene = procedural.sphere_mesh_scene(6).with_kd_binned().to("cuda")
+        kd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if native.get_lib() is None:
+            fail("g++ could not build the native BVH builder")
+        gxx_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_bvh(mesh_scene.positions(), backend="native")
+        bvh_s = time.perf_counter() - t0
+        print(f"[7 bvh/json] sphere_mesh_scene(6), {mesh_scene.num_tris} triangles: native SAH "
+              f"BVH build {bvh_s:.3f} s (its g++ build {gxx_s:.3f} s before; KD cells "
+              f"{kd_s:.3f} s)", flush=True)
+        kd_kernel.LAUNCHES = 0
+        (m_img, m_rays), m_ms = timed(lambda: M.render_wavefront_sharded(
+            mesh_scene, cam, 8, key, ray_mesh, cfg, 65536))
+        kd_launches = kd_kernel.LAUNCHES
+        parts = [M.render_wavefront_shard(mesh_scene, cam, 8, key, i, 2, cfg, 32768)
+                 for i in range(2)]
+        same = (torch.equal(torch.cat([p[0] for p in parts]).reshape(256, 256, 3), m_img)
+                and sum(p[1] for p in parts) == m_rays)
+        print(f"[7 mesh] render_wavefront_sharded sphere_mesh_scene(6) 256x256@8spp lanes "
+              f"65536, world size 1: {kd_launches} KD kernel launches, {m_ms / 1e3:.4f} s, "
+              f"{256 * 256 * 8 / m_ms * 1e3 / 1e6:.4f}M paths/s; 2 slices of lanes 32768 "
+              f"bit-equal: {same}", flush=True)
+        if kd_launches < 1 or not same or not bool(torch.isfinite(m_img).all()):
+            fail("the sharded mesh path launched no B2, or its 2-slice split differs")
+        del mesh_scene
+
+        # raycast_bvh (plain PyTorch) against B3 on Cornell camera rays
+        bvh_scene = procedural.cornell_box_scene(include_spheres=True).with_bvh().to("cuda")
+        org, dirs, t_min, t_max = kd.probe_rays(bvh_scene, cam, 4, seed=3)["camera"]
+        a = raycast_bvh(bvh_scene, org, dirs, t_min, t_max)
+        b = mt.raycast_mt(bvh_scene, org, dirs, t_min, t_max)
+        # equal t on two triangles (rays along shared edges): B3 keeps the
+        # lowest id, the BVH walk the last it visits, a higher id in leaf order
+        ties = a.hit & (a.prim_id != b.prim_id)
+        same = (torch.equal(a.hit, b.hit) and torch.equal(a.is_sphere, b.is_sphere)
+                and torch.equal(a.t[a.hit], b.t[b.hit])
+                and bool((a.prim_id[ties] > b.prim_id[ties]).all())
+                and not bool(a.is_sphere[ties].any()))
+        print(f"[7 bvh/json] raycast_bvh vs B3 (raycast_mt) on {org.shape[0]} Cornell camera "
+              f"rays, {int(a.hit.sum())} hits: same hits, spheres and t: {same}; same winner "
+              f"but on {int(ties.sum())} exact ties, where the walk keeps the later triangle",
+              flush=True)
+        if not same:
+            fail("raycast_bvh and B3 find different winners")
+
+        # a JSON scene with the blob82k OBJ: BVH order, then KD cells (B2)
+        doc = {"camera": {"pos": [0, 20, 60], "look_at": [0, 18, 0], "width": 64, "height": 64},
+               "objects": [
+                   {"type": "cornell_walls"},
+                   {"type": "box", "center": [-12, 5, -8], "half_extents": [4, 5, 4],
+                    "material": {"albedo": [0.7, 0.7, 0.7]}},
+                   {"type": "icosphere", "radius": 4, "center": [12, 4, 6], "subdivisions": 2,
+                    "material": {"albedo": [0.3, 0.6, 0.3], "roughness": 0.3}},
+                   {"type": "sphere", "center": [-10, 16, 6], "radius": 4,
+                    "material": {"metallic": 1.0, "roughness": 0.2}},
+                   {"type": "obj", "path": os.path.join(REPO, "assets", "blob82k.obj")}]}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "scene.json")
+            with open(path, "w") as f:
+                json_mod.dump(doc, f)
+            t0 = time.perf_counter()
+            j_scene, j_cam = json_io.load_scene(path)
+            load_s = time.perf_counter() - t0
+        j_scene = j_scene.to("cuda")
+        kd_kernel.LAUNCHES = 0
+        k_img, k_rays = render_wavefront_stats(j_scene, j_cam, 16, key, cfg, 16384,
+                                               device="cuda")
+        kd_launches = kd_kernel.LAUNCHES
+        p_img, p_rays = render_wavefront_stats(j_scene, j_cam, 16, key, cfg, 16384,
+                                               device="cuda", search=kd.kd_closest_plain)
+        same = torch.equal(k_img, p_img) and k_rays == p_rays
+        print(f"[7 bvh/json] JSON scene (walls, box, icosphere, sphere, blob82k.obj): "
+              f"{j_scene.num_tris} triangles, BVH {j_scene.bvh.num_nodes} nodes, "
+              f"{j_scene.clusters.num_clusters} KD cells, loaded in {load_s:.2f} s; 64x64@16spp: "
+              f"{kd_launches} KD kernel launches, bit-equal to the plain search: {same}, mean "
+              f"{k_img.mean().item():.6f}", flush=True)
+        if kd_launches < 1 or not same or not bool(np.isfinite(k_img.cpu().numpy()).all()):
+            fail("the JSON scene did not route through B2 or differs from the plain search")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -848,6 +1072,7 @@ def main() -> int:
     kd_entry = mesh_phase(smi)
     mt_entry = train_phase(smi)
     parity_phase(smi)
+    shard_phase(smi, img.mean().item(), occ)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -862,6 +1087,8 @@ def main() -> int:
         "bound_ms": b1_ms,
         "bound_by": b1_by,
         "library_ms": None,
+        "note": "keyed by global path ids on a pixel slice (PtParams num_pix_total, "
+                "pix_offset), held bit-equal on slices in phase 7",
     }, kd_entry, mt_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

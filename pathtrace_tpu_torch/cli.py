@@ -1,9 +1,10 @@
-"""Command-line harness for the port: the `render` and `grad-check`
-subcommands.
+"""Command-line harness for the port: the `render`, `grad-check` and
+`bench` subcommands.
 
     python -m pathtrace_tpu_torch.cli render --preset cornell64 --engine fused --out out.png
     python -m pathtrace_tpu_torch.cli render --passes 4 --checkpoint ck.npz --resume
     python -m pathtrace_tpu_torch.cli grad-check --preset cornell64 --width 16 --height 16 --spp 4
+    python -m pathtrace_tpu_torch.cli bench --width 256 --height 256 --spp 1024
 
 The device defaults to cuda; without a GPU the command fails rather than
 run on the CPU. Ask for the CPU with --device cpu (every kernel then runs
@@ -146,6 +147,23 @@ def cmd_grad_check(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bench(args) -> int:
+    """The throughput benchmark (pathtrace_tpu_torch.bench) with BENCH_W,
+    BENCH_H and BENCH_SPP set from the flags (JAX cli.py:163-176). As in
+    the JAX package, --preset is accepted and does not choose the scene:
+    BENCH_SCENE does."""
+    import os
+
+    from pathtrace_tpu_torch import bench
+
+    for flag, var in ((args.width, "BENCH_W"), (args.height, "BENCH_H"),
+                      (args.spp, "BENCH_SPP")):
+        if flag:
+            os.environ[var] = str(flag)
+    bench.main()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pathtrace_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -186,6 +204,13 @@ def main(argv=None) -> int:
     pg.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     pg.set_defaults(fn=cmd_grad_check)
+
+    pb = sub.add_parser("bench", help="throughput benchmark (BENCH_SCENE picks the scene)")
+    pb.add_argument("--preset", default="cornell64")
+    pb.add_argument("--width", type=int, default=0)
+    pb.add_argument("--height", type=int, default=0)
+    pb.add_argument("--spp", type=int, default=0)
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -19,6 +19,17 @@
 // The TPU layout (bf16 split products, paneled state, one-hot attribute
 // fetch, k_pix film rows, g_inner host loop) is not carried over.
 //
+// A launch may render one pixel slice of the image (a shard of
+// parallel/mesh.py::render_fused_sharded): pixels [pix_offset, pix_offset +
+// num_pix) of num_pix_total. Lanes and film slots then run in local path ids
+// (sample * num_pix + local pixel), while the Philox streams and the camera
+// ray take the global id (sample * num_pix_total + pix_offset + local
+// pixel), as wavefront._make_to_global and the TPU kernel
+// (bounce_kernel.py:464-480) do, so N slices are path for path the whole
+// render. The global id is computed once per path, at its regeneration, and
+// kept in a register; a launch over the whole image (num_pix_total ==
+// num_pix) takes the identity in a branch uniform over the launch.
+//
 // Film: slot (k % K) * lanes + i holds lane i's k-th path, K = max(1,
 // num_pix / lanes). When num_pix % lanes == 0 the slot is the pixel and the
 // lanes own disjoint pixel sets; when lanes % num_pix == 0 the caller sums
@@ -75,11 +86,12 @@ constexpr uint32_t STREAM_JITTER = 0x4A495454u;
 
 // Kernel parameters; mirrored field for field by ops/cuda/bounce_kernel.py.
 struct PtParams {
-  long long base_path;    // first path id of this launch
-  long long total_paths;  // path ids [base_path, base_path + total_paths)
+  long long base_path;    // first local path id of this launch
+  long long total_paths;  // local path ids [base_path, base_path + total_paths)
   float cam_pos[3], cam_forward[3], cam_up[3], cam_right[3];
   float tan_x, tan_y;  // tan(fov/2), float32 values taken on the host
   int width, height, num_pix, lanes, k_pix;
+  int num_pix_total, pix_offset;  // the slice: pixels [pix_offset, pix_offset + num_pix)
   int num_tris, num_spheres, num_lights;
   unsigned int key0, key1;
   int max_bounce, rr_bounce, refract_cap, nee;
@@ -253,11 +265,17 @@ __device__ __forceinline__ V3 nee(const float* geo, const float* __restrict__ at
   return finite3(contrib) ? contrib : zero3();  // NaN skip (CudaUtil.cuh:271)
 }
 
-// The camera ray of a path (wavefront._regen_rays).
+// The global path id of a local one (wavefront._make_to_global).
+__device__ __forceinline__ long long to_global(const PtParams& P, long long local) {
+  if (P.num_pix_total == P.num_pix) return local;  // the whole image
+  return local / P.num_pix * P.num_pix_total + P.pix_offset + local % P.num_pix;
+}
+
+// The camera ray of a path, by its global id (wavefront._regen_rays).
 __device__ __forceinline__ void camera_ray(const PtParams& P, long long path_id, V3* org, V3* dir) {
   uint32_t jc[4] = {(uint32_t)path_id, 0u, 0u, STREAM_JITTER};
   philox(jc, P.key0, P.key1);
-  long long pixel = path_id % P.num_pix;
+  long long pixel = path_id % P.num_pix_total;
   float px = (float)(pixel % P.width);
   float py = (float)(pixel / P.width);
   float sx = 2.0f * ((px + u01(jc[0])) / (float)(P.width - 1) - 0.5f);
@@ -301,13 +319,18 @@ __global__ void __launch_bounds__(BLOCK)
     slot[0] = slot[1] = slot[2] = 0.0f;
   }
   long long rays = 0;
-  long long off = lane;  // the current path is base_path + off
-  // one path's state (make_bounce_fn), reset at each regeneration
+  long long off = lane;  // the current path's local id is base_path + off
+  // one path's state (make_bounce_fn), reset at each regeneration; rid is
+  // its global id as the Philox counter takes it (rng.uniforms)
   V3 org, dir, radiance = zero3(), weight = v3(1.0f, 1.0f, 1.0f);
   int depth = 0, refract_cnt = 0;
   bool refracted = false;
-  uint32_t it = 0;
-  if (off < P.total_paths) camera_ray(P, P.base_path + off, &org, &dir);
+  uint32_t it = 0, rid = 0;
+  if (off < P.total_paths) {
+    long long gid = to_global(P, P.base_path + off);
+    rid = (uint32_t)gid;
+    camera_ray(P, gid, &org, &dir);
+  }
   const bool do_nee = P.nee && P.num_lights > 0;
   // The loop leaves only through its condition: a `break` in the body would
   // move the point where a warp's diverged lanes meet again past the loop,
@@ -319,7 +342,6 @@ __global__ void __launch_bounds__(BLOCK)
     if (!h.hit) {  // miss: += weight * gray, path ends (CudaUtil.cuh:375-379)
       radiance = radiance + weight * ld3(P.miss);
     } else {
-      const uint32_t rid = (uint32_t)(P.base_path + off);
       float u[8];
       draws(P, rid, it, u);
       V3 wo = -dir;
@@ -357,7 +379,11 @@ __global__ void __launch_bounds__(BLOCK)
       slot[1] += radiance.y;
       slot[2] += radiance.z;
       off += P.lanes;
-      if (off < P.total_paths) camera_ray(P, P.base_path + off, &org, &dir);
+      if (off < P.total_paths) {
+        long long gid = to_global(P, P.base_path + off);
+        rid = (uint32_t)gid;
+        camera_ray(P, gid, &org, &dir);
+      }
       radiance = zero3();
       weight = v3(1.0f, 1.0f, 1.0f);
       depth = refract_cnt = 0;

@@ -185,13 +185,19 @@ def replay_paths(scene: Scene, records, org, dirn, ray_ids, base_key,
 # user-facing: render + material grads via record/replay
 # ---------------------------------------------------------------------------
 
-def _camera_rays(scene: Scene, camera: Camera, sample_idx: int, base_key):
+def _camera_rays(scene: Scene, camera: Camera, sample_idx: int, base_key,
+                 pix_offset: int = 0, num_pix_local=None):
     """(org, dirs, ray_ids) of sample `sample_idx`'s camera rays on the
-    scene's device, ray_id = sample * num_pix + pixel (render_sample's)."""
-    px, py = camera.pixel_grid(scene.device)
-    num_pix = px.shape[0]
-    ray_ids = sample_idx * num_pix + torch.arange(num_pix, dtype=torch.int32,
-                                                  device=scene.device)
+    scene's device, ray_id = sample * num_pix + pixel (render_sample's),
+    for the pixel slice [pix_offset, pix_offset + num_pix_local) (the whole
+    image when num_pix_local is None; JAX replay.py:240-254): a shard keys
+    its rays by global id, so N-shard grads are path for path 1-shard's."""
+    num_pix = camera.width * camera.height
+    npl = num_pix if num_pix_local is None else num_pix_local
+    pixel = pix_offset + torch.arange(npl, dtype=torch.int32, device=scene.device)
+    px = (pixel % camera.width).to(torch.float32)
+    py = (pixel // camera.width).to(torch.float32)
+    ray_ids = sample_idx * num_pix + pixel
     ju = rng.pixel_jitter(base_key, ray_ids)
     dirs = camera.ray_directions(px, py, ju[:, 0], ju[:, 1])
     org = torch.as_tensor(camera.pos, device=scene.device).expand_as(dirs)
@@ -199,17 +205,20 @@ def _camera_rays(scene: Scene, camera: Camera, sample_idx: int, base_key):
 
 
 def _material_grads_replay_impl(scene: Scene, camera: Camera, spp: int, base_key, cfg,
-                                loss_grad_flat, *, search=None):
-    """Record/replay gradient core: per sample one recorded forward and one
-    backward through the replay. loss_grad_flat: (num_pix, 3) cotangent.
-    Returns (g_tri, g_sph, (num_pix, 3) image)."""
+                                loss_grad_flat, pix_offset: int = 0, num_pix_local=None, *,
+                                search=None):
+    """Record/replay gradient core over a pixel slice (the whole image when
+    num_pix_local is None): per sample one recorded forward and one backward
+    through the replay. loss_grad_flat: (num_pix_local, 3) cotangent, divided
+    by spp here. Returns (g_tri, g_sph, (num_pix_local, 3) image slice)."""
     ct = loss_grad_flat / float(spp)
     tri, sph = leaf_materials(scene.mat), leaf_materials(scene.spheres.mat)
     live = with_materials(scene, tri, sph)
     g_tri = g_sph = None
     accum = torch.zeros_like(ct)
     for s in range(spp):
-        org, dirs, ray_ids = _camera_rays(scene, camera, s, base_key)
+        org, dirs, ray_ids = _camera_rays(scene, camera, s, base_key, pix_offset,
+                                          num_pix_local)
         _, records = record_paths(scene, org, dirs, ray_ids, base_key, cfg, search=search)
         rad = replay_paths(live, records, org, dirs, ray_ids, base_key, cfg)
         gt, gs = material_grad((rad * ct).sum(), tri, sph)

@@ -30,7 +30,7 @@ from pathtrace_tpu_torch.diff.grad import (add_materials, leaf_materials, materi
 from pathtrace_tpu_torch.diff.replay import recording_hooks, replay_hooks
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.megakernel import init_state, make_bounce_fn
-from pathtrace_tpu_torch.integrator.wavefront import _regen_rays, _run_wavefront
+from pathtrace_tpu_torch.integrator.wavefront import _make_to_global, _regen_rays, _run_wavefront
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.utils.device import resolve_device
 
@@ -56,7 +56,8 @@ def unpack_rec(packed: torch.Tensor) -> dict:
 
 def record_paths_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                            cfg: IntegratorConfig = IntegratorConfig(),
-                           lanes: int = 65536, sample_offset: int = 0, *, search=None):
+                           lanes: int = 65536, sample_offset: int = 0, *,
+                           pix_offset: int = 0, num_pix_local=None, search=None):
     """Tape the whole pixel x sample pool with a regenerating wavefront on
     the scene's device.
 
@@ -64,8 +65,12 @@ def record_paths_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     P = num_pix * spp, slot (i, p) holding path p's i-th bounce outcome
     (_pack_rec; 0 past the path's end), and film (num_pix, 3), the recorded
     primal's per-pixel mean (the wavefront's image; the replay primal to
-    float-sum order, so it can weight an L2 cotangent)."""
-    num_pix = camera.width * camera.height
+    float-sum order, so it can weight an L2 cotangent).
+
+    pix_offset and num_pix_local restrict the pool to a pixel slice as in wavefront._run_wavefront: p is then a local path id and
+    num_pix the slice's pixel count, while RNG and camera rays take global
+    ids, so an N-shard recording is path for path the 1-shard one."""
+    num_pix = camera.width * camera.height if num_pix_local is None else num_pix_local
     total = num_pix * spp
     mi = cfg.max_iters
     base_path = sample_offset * num_pix
@@ -86,16 +91,24 @@ def record_paths_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
 
     with torch.no_grad():
         img, _ = _run_wavefront(scene, camera, spp, base_key, cfg, lanes, sample_offset,
+                                pix_offset=pix_offset, num_pix_local=num_pix_local,
                                 raycast_fn=rec_raycast, visible_fn=rec_visible,
                                 on_iteration=commit)
     return rec[:-1].reshape(mi, total), img.reshape(num_pix, 3)
 
 
-def _chunk_rays(camera: Camera, ray_ids: torch.Tensor, base_key):
-    """(org, dirs, pixel) of the camera rays of arbitrary global path ids."""
-    num_pix = camera.width * camera.height
-    org, dirs = _regen_rays(camera, ray_ids, base_key, num_pix)
-    return org, dirs, ray_ids % num_pix
+def _chunk_rays(camera: Camera, ids: torch.Tensor, base_key, *, pix_offset: int = 0,
+                num_pix_local=None):
+    """(org, dirs, local pixel, global ids) of the camera rays of arbitrary
+    local path ids of a pixel slice (wavefront._run_wavefront's keywords;
+    the whole image by default): global id = (ids // num_pix_local) *
+    num_pix + pix_offset + local pixel, num_pix the camera's (JAX
+    wavetape.py:314)."""
+    npt = camera.width * camera.height
+    npl = npt if num_pix_local is None else num_pix_local
+    gids = _make_to_global(npl, npt, pix_offset)(ids)
+    org, dirs = _regen_rays(camera, gids, base_key, npt)
+    return org, dirs, ids % npl, gids
 
 
 def _replay_step(scene, packed, ray_ids, it, base_key, cfg, *state):
@@ -120,21 +133,27 @@ def replay_chunk(scene: Scene, records, org, dirn, ray_ids, base_key,
 
 def wavetape_grads_core(scene: Scene, camera: Camera, spp: int, base_key,
                         cfg: IntegratorConfig, ct_flat, lanes: int, chunk: int,
-                        ct_fn=None, *, search=None):
-    """One recording sweep, then length-sorted chunked replay backwards.
+                        ct_fn=None, *, pix_offset: int = 0, num_pix_local=None,
+                        search=None):
+    """One recording sweep, then length-sorted chunked replay backwards, over
+    the pixel slice [pix_offset, pix_offset + num_pix_local) of the camera's
+    image (the whole image by default).
 
-    ct_flat: (num_pix, 3) cotangent (any 1/spp already in it), or None with
-    ct_fn(rec_film) -> cotangent from the recorded primal (an L2 loss reuses
-    the one recording pass). Returns (g_tri, g_sph, film (num_pix, 3) replay
-    primal mean, rec_film (num_pix, 3) recorded primal mean)."""
-    num_pix = camera.width * camera.height
-    total = num_pix * spp
+    ct_flat: (num_pix_local, 3) cotangent (any 1/spp already in it), or None
+    with ct_fn(rec_film) -> cotangent from the recorded primal (an L2 loss
+    reuses the one recording pass). Returns (g_tri, g_sph, film
+    (num_pix_local, 3) replay primal mean, rec_film (num_pix_local, 3)
+    recorded primal mean). Local path ids order the tape, global ids
+    (JAX wavetape.py:314) drive RNG and camera rays."""
+    npl = camera.width * camera.height if num_pix_local is None else num_pix_local
+    total = npl * spp
     chunk = min(chunk, total)
     if total % chunk:
         raise ValueError(f"chunk={chunk} must divide the {total} paths")
 
-    records, rec_film = record_paths_wavefront(scene, camera, spp, base_key, cfg, lanes,
-                                               search=search)
+    records, rec_film = record_paths_wavefront(
+        scene, camera, spp, base_key, cfg, lanes, pix_offset=pix_offset,
+        num_pix_local=num_pix_local, search=search)
     if ct_flat is None:
         ct_flat = ct_fn(rec_film)
 
@@ -147,16 +166,20 @@ def wavetape_grads_core(scene: Scene, camera: Camera, spp: int, base_key,
     tri, sph = leaf_materials(scene.mat), leaf_materials(scene.spheres.mat)
     live = with_materials(scene, tri, sph)
     g_tri = g_sph = None
-    film = torch.zeros_like(rec_film)
+    # each path's radiance at its own slot (unique indices), summed over the
+    # samples at the end: a fixed order, where index_add_'s atomics would
+    # reorder a pixel's sums from run to run on CUDA
+    path_rad = torch.zeros((total, 3), device=rec_film.device)
     for c, depth in enumerate(depths):
         ids = order[c * chunk:(c + 1) * chunk]
-        org, dirs, pix = _chunk_rays(camera, ids, base_key)
-        rad = replay_chunk(live, rec_rows[ids, :depth].t(), org, dirs, ids, base_key, cfg)
-        gt, gs = material_grad((rad * ct_flat[pix]).sum(), tri, sph)
+        org, dirs, lpix, gids = _chunk_rays(camera, ids, base_key, pix_offset=pix_offset,
+                                            num_pix_local=npl)
+        rad = replay_chunk(live, rec_rows[ids, :depth].t(), org, dirs, gids, base_key, cfg)
+        gt, gs = material_grad((rad * ct_flat[lpix]).sum(), tri, sph)
         g_tri, g_sph = (gt, gs) if g_tri is None else (add_materials(g_tri, gt),
                                                        add_materials(g_sph, gs))
-        film.index_add_(0, pix, rad.detach())
-    return g_tri, g_sph, film / spp, rec_film
+        path_rad[ids] = rad.detach()
+    return g_tri, g_sph, path_rad.reshape(spp, npl, 3).sum(dim=0) / spp, rec_film
 
 
 def material_grads_wavetape(scene: Scene, camera: Camera, spp: int, base_key,

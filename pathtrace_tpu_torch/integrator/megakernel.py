@@ -53,8 +53,12 @@ def default_raycast(scene: Scene, search=None):
     route). Either search is the CUDA kernel on CUDA tensors and its plain
     version on CPU tensors; `search` replaces it (kd_closest_plain or
     mt_closest_plain, as chip_smoke.py does to run the plain version on the
-    card). The JAX package's BVH and binned v1 routes are not ported; they
-    find the same winners."""
+    card). A scene with a BVH (Scene.with_bvh) keeps the all-triangles
+    route over its leaf-ordered table, where the JAX package routes it
+    through MT-matmul (with_mt, a TPU formulation the port does not build);
+    both find raycast_brute's winners. accel/traverse.py::raycast_bvh, the
+    JAX package's BVH route, is reachable as a raycast_fn. JAX's binned v1
+    route is not ported (ROADMAP "Not to port")."""
     if scene.clusters is not None:
         return functools.partial(raycast_kd, search=search or kd_closest)
     return functools.partial(raycast_mt, search=search or mt_closest)

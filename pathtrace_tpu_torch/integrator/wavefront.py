@@ -20,6 +20,12 @@ lane traces it. Two assignments of paths to lanes, as in JAX:
 Closest-hit and shadow rays go through megakernel.default_raycast, so a
 scene with KD cells takes the mesh path in both assignments, and any other
 scene the all-triangles search.
+
+A pixel slice (pix_offset, num_pix_local) restricts the pool to pixels
+[pix_offset, pix_offset + num_pix_local) of the camera's image: lanes and film slots
+run in local path ids, RNG streams and camera rays in global ones
+(_make_to_global), so an N-shard render is path for path the 1-shard
+render (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ def check_lanes(lanes: int, num_pix: int) -> int:
 
 
 def _regen_rays(camera: Camera, path_idx: torch.Tensor, base_key, num_pix: int):
-    """Camera ray for global path index = sample*num_pix + pixel."""
+    """Camera ray for global path index = sample*num_pix + pixel, num_pix
+    the whole image's pixel count."""
     pixel = path_idx % num_pix
     px = (pixel % camera.width).to(torch.float32)
     py = (pixel // camera.width).to(torch.float32)
@@ -54,21 +61,47 @@ def _regen_rays(camera: Camera, path_idx: torch.Tensor, base_key, num_pix: int):
     return org, dirs
 
 
+def _make_to_global(num_pix_local: int, num_pix_total: int, pix_offset: int):
+    """Local path id -> global path id of a contiguous pixel slice
+    (JAX wavefront.py:52-71): a shard owning pixels [pix_offset,
+    pix_offset + num_pix_local) enumerates local ids
+    sample * num_pix_local + local_pixel for its lanes and film, and keys
+    RNG streams and camera rays by sample * num_pix_total + pix_offset +
+    local_pixel. The identity when the slice is the whole image."""
+    if num_pix_local == num_pix_total:
+        return lambda local: local
+
+    def to_global(local):
+        return (local // num_pix_local) * num_pix_total + pix_offset + local % num_pix_local
+
+    return to_global
+
+
 def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                    cfg: IntegratorConfig, lanes: int, sample_offset: int = 0, *,
-                   search=None, raycast_fn=None, visible_fn=None, on_iteration=None):
+                   pix_offset: int = 0, num_pix_local=None, search=None, raycast_fn=None, visible_fn=None, on_iteration=None):
     """((H, W, 3) mean image, int rays traced) over path ids
     [sample_offset*num_pix, (sample_offset+spp)*num_pix) on the scene's
     device; `search`, `raycast_fn` and `visible_fn` as in
     megakernel.make_bounce_fn. on_iteration(ray_ids, lane_iter, alive), if
-    given, runs after each bounce with the lanes' state before it (the
-    gradient recorder commits its tape there, diff/wavetape.py)."""
-    num_pix = camera.width * camera.height
+    given, runs after each bounce with the lanes' state before it, in local
+    path ids (the gradient recorder commits its tape there,
+    diff/wavetape.py).
+
+    With num_pix_local set, the pool is the pixel slice [pix_offset,
+    pix_offset + num_pix_local) of the camera's image and the image is the
+    flat (num_pix_local, 3) slice."""
+    npt = camera.width * camera.height
+    num_pix = npt if num_pix_local is None else num_pix_local
     if lanes <= 0:
         raise ValueError(f"lanes={lanes} must be positive")
+    if pix_offset < 0 or pix_offset + num_pix > npt:
+        raise ValueError(f"pixel slice [{pix_offset}, {pix_offset + num_pix}) outside the "
+                         f"image's {npt} pixels")
+    to_global = _make_to_global(num_pix, npt, pix_offset)
     static = lanes % num_pix == 0 or num_pix % lanes == 0
     k_pix = max(1, num_pix // lanes)
-    rng.check_path_ids(num_pix, spp, sample_offset)
+    rng.check_path_ids(npt, spp, sample_offset)
     dev = scene.device
     base_path = sample_offset * num_pix
     total_paths = num_pix * spp
@@ -78,7 +111,7 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     film = torch.zeros((k_pix, lanes, 3) if static else (num_pix, 3), device=dev)
     lane = torch.arange(lanes, dtype=torch.int64, device=dev)
     ray_ids = base_path + lane  # int64: ray_id + lanes may pass 2**31 - 1
-    org, dirn = _regen_rays(camera, ray_ids, base_key, num_pix)
+    org, dirn = _regen_rays(camera, to_global(ray_ids), base_key, npt)
     alive = lane < total_paths  # lanes may exceed tiny pools
     pixel = ray_ids % num_pix  # pool: each lane's film pixel
     next_path = torch.full((), lanes, dtype=torch.int64, device=dev)  # pool counter
@@ -94,8 +127,8 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     while bool(alive.any()):
         (org, dirn, radiance, weight, depth, refract_cnt, refracted,
          alive_next, traced) = bounce(org, dirn, radiance, weight, depth,
-                                      refract_cnt, refracted, alive, ray_ids,
-                                      lane_iter)
+                                      refract_cnt, refracted, alive,
+                                      to_global(ray_ids), lane_iter)
         rays = rays + traced
         if on_iteration is not None:
             on_iteration(ray_ids, lane_iter, alive)
@@ -124,7 +157,7 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
             new_idx = ray_ids + lanes
             regen = died & (new_idx - base_path < total_paths)
             new_safe = torch.where(regen, new_idx, torch.zeros_like(new_idx))
-        r_org, r_dir = _regen_rays(camera, new_safe, base_key, num_pix)
+        r_org, r_dir = _regen_rays(camera, to_global(new_safe), base_key, npt)
         sel = regen[:, None]
         org = torch.where(sel, r_org, org)
         dirn = torch.where(sel, r_dir, dirn)
@@ -142,6 +175,8 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
         film_pix = film.reshape(num_pix, 3)
     else:
         film_pix = film.reshape(lanes // num_pix, num_pix, 3).sum(dim=0)
+    if num_pix_local is not None:
+        return film_pix.reshape(num_pix, 3) / spp, int(rays)
     img = film_pix.reshape(camera.height, camera.width, 3) / spp
     return img, int(rays)
 
@@ -166,12 +201,16 @@ def render_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
                                   sample_offset, device=device)[0]
 
 
-def accumulate_chunks(run_chunk, camera: Camera, spp: int, chunk_spp: int, dev):
+def accumulate_chunks(run_chunk, camera: Camera, spp: int, chunk_spp: int, dev,
+                      num_pix_local=None):
     """Chunks of chunk_spp samples, accumulated as the JAX driver does
     (film += chunk_image * chunk_spp). run_chunk(spp, sample_offset) returns
-    one chunk's ((H, W, 3) mean image, rays traced). Returns ((H, W, 3)
-    image on dev, rays traced)."""
-    film = torch.zeros((camera.height, camera.width, 3), device=dev)
+    one chunk's ((H, W, 3) mean image, rays traced), or its flat
+    (num_pix_local, 3) slice when num_pix_local is set. Returns (image of
+    that shape on dev, rays traced)."""
+    shape = ((camera.height, camera.width, 3) if num_pix_local is None
+             else (num_pix_local, 3))
+    film = torch.zeros(shape, device=dev)
     rays = 0
     done = 0
     while done < spp:

@@ -13,8 +13,8 @@ Materials follow the reference's aiMaterial fetch (model.h:173-207): Kd ->
 albedo, Ke -> emittance, Ks -> specular, Pm metallic, Pr (or Ns converted)
 roughness, d / Tr opacity.
 
-The SAH BVH is not ported yet (ROADMAP A7, "left"): load_obj_scene with
-build_bvh=True raises.
+load_obj_scene builds the SAH BVH by default (Scene.with_bvh), as the JAX
+package does: the triangles come in BVH leaf order.
 """
 
 from __future__ import annotations
@@ -232,15 +232,9 @@ def load_obj_scene(path: str, translation=(0, 0, 0), scale=1.0,
                    extra=None, build_bvh: bool = True,
                    model_matrix=None, normal_mode: str = "reference") -> Scene:
     """Load an OBJ file as a Scene, optionally merged with `extra`
-    (positions, normals, Material) parts such as a procedural room.
-
-    build_bvh=True (the JAX package's default) raises: the SAH BVH is not
-    ported (ROADMAP A7). Large meshes take the KD cells instead
-    (Scene.with_kd_binned)."""
-    if build_bvh:
-        raise NotImplementedError(
-            "the SAH BVH (accel/bvh.py) is not ported yet (ROADMAP A7, left); "
-            "call load_obj_scene(..., build_bvh=False) and Scene.with_kd_binned()")
+    (positions, normals, Material) parts such as a procedural room; with
+    build_bvh the scene has its SAH BVH and leaf-ordered triangles
+    (Scene.with_bvh)."""
     mesh = load_obj(path)
     pos, normals, _, mat = obj_to_arrays(
         mesh, translation, scale, model_matrix=model_matrix,
@@ -253,4 +247,5 @@ def load_obj_scene(path: str, translation=(0, 0, 0), scale=1.0,
         mats.append(em)
     tris = Triangles.from_vertices(np.concatenate(parts_p, axis=0),
                                    np.concatenate(parts_n, axis=0))
-    return Scene.build(tris, Material.stack(mats))
+    scene = Scene.build(tris, Material.stack(mats))
+    return scene.with_bvh() if build_bvh else scene

@@ -3,11 +3,12 @@
 build_preset_scene applies the JAX package's size rule
 (presets.py:94-106): a `use_bvh` preset with more than 4096 triangles gets
 KD cells (Scene.with_kd_binned), the mesh path; `mesh512` (the blob82k
-OBJ asset) and `multihost1024` (an 82k-triangle icosphere, built for one
-device: sharding is ROADMAP A11) take it. Smaller scenes stay on the
-brute raycast, where JAX builds a BVH and MT-matmul coefficients and
-reorders triangles into BVH leaf order: a documented deviation; both
-searches find the same closest hits, and the images agree at golden bars.
+OBJ asset) and `multihost1024` (an 82k-triangle icosphere) take it. A
+smaller `use_bvh` preset gets the SAH BVH (Scene.with_bvh), which reorders
+its triangles into leaf order as JAX's does, and is searched by the
+all-triangles route: JAX adds MT-matmul coefficients (with_mt, a TPU
+formulation) that win its route, and the all-triangles search finds the
+same winners, exact ties included, over the same leaf-ordered table.
 """
 
 from __future__ import annotations
@@ -94,9 +95,10 @@ def get_preset(name: str) -> Preset:
 
 
 def build_preset_scene(preset: Preset):
-    """The preset's scene on the host (move it with Scene.to), with KD cells
-    when it has more than KD_MIN_TRIS triangles."""
+    """The preset's scene on the host (move it with Scene.to): with KD cells
+    when it has more than KD_MIN_TRIS triangles, else with the SAH BVH in
+    leaf order, if the preset uses acceleration."""
     scene = preset.build_scene()
-    if preset.use_bvh and scene.num_tris > KD_MIN_TRIS:
-        scene = scene.with_kd_binned()
+    if preset.use_bvh:
+        scene = scene.with_kd_binned() if scene.num_tris > KD_MIN_TRIS else scene.with_bvh()
     return scene

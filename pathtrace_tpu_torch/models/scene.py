@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pathtrace_tpu_torch.accel.binned import ClusterArrays
+from pathtrace_tpu_torch.accel.bvh import BVH_FIELDS, BVHArrays
 from pathtrace_tpu_torch.utils import math3
 
 # The KD cell leaves a scene carries across (Scene.from_numpy).
@@ -191,6 +192,8 @@ class Scene:
     (optional) holds the KD cells of the mesh raycast
     (Scene.with_kd_binned); the engines then route every closest-hit and
     shadow ray through them (integrator/megakernel.default_raycast).
+    `bvh` (optional) is the SAH BVH over the triangles in leaf order
+    (Scene.with_bvh), walked by accel/traverse.py::raycast_bvh.
     """
 
     tris: Triangles
@@ -200,6 +203,7 @@ class Scene:
     num_lights: int
     light_pack: torch.Tensor  # (L, 13) float32
     clusters: Optional[ClusterArrays] = None
+    bvh: Optional[BVHArrays] = None
 
     @property
     def num_tris(self) -> int:
@@ -221,6 +225,21 @@ class Scene:
         tr = self.tris
         return np.stack([tr.v0.cpu().numpy(), tr.v1.cpu().numpy(),
                          tr.v2.cpu().numpy()], axis=1)
+
+    def with_bvh(self, leaf_size: int = 4) -> "Scene":
+        """The scene with the SAH BVH (accel/bvh.py) and its triangles and
+        materials permuted into leaf-contiguous order, the light table
+        rebuilt (JAX scene.py:280-297). KD cells, which index the old
+        order, are dropped, as JAX's with_bvh drops them."""
+        from pathtrace_tpu_torch.accel.bvh import build_bvh
+
+        bvh, order = build_bvh(self.positions(), leaf_size=leaf_size)
+        host = self.to("cpu")
+        idx = torch.from_numpy(order)
+        tris = Triangles(**{f.name: getattr(host.tris, f.name)[idx]
+                            for f in dataclasses.fields(Triangles)})
+        base = Scene.build(tris, host.mat.gather(idx), host.spheres)
+        return dataclasses.replace(base, bvh=bvh).to(self.device)
 
     def with_kd_binned(self, max_tris: int = 1024) -> "Scene":
         """The scene with KD cells over its triangles (accel/kdgrid.py,
@@ -260,8 +279,10 @@ class Scene:
         "mat.<field>", "spheres.center", "spheres.radius",
         "spheres.mat.<field>", "lights", "light_pack" and "num_lights",
         plus, for a KD scene, "clusters.<bmin|bmax|prim_start|prim_count|
-        dup_map>" (how the tests carry a JAX scene across; the member
-        table is gathered from the triangles)."""
+        dup_map>" (the member table is gathered from the triangles) and, for
+        a scene with a BVH, "bvh.<bmin|bmax|next_hit|next_miss|prim_start|
+        prim_count>" and "bvh.max_depth" (how the tests carry a JAX scene
+        across)."""
         mat = lambda prefix: Material(
             **{f: _t(d[f"{prefix}.{f}"]) for f in _MAT_FIELDS})
         tris = Triangles(**{f.name: _t(d[f"tris.{f.name}"])
@@ -273,6 +294,9 @@ class Scene:
                       lights=torch.from_numpy(np.asarray(d["lights"], np.int32)),
                       num_lights=int(d["num_lights"]),
                       light_pack=_t(d["light_pack"]))
+        if "bvh.bmin" in d:
+            scene = dataclasses.replace(scene, bvh=BVHArrays.from_numpy(
+                *(d[f"bvh.{f}"] for f in BVH_FIELDS), int(d["bvh.max_depth"])))
         if "clusters.bmin" not in d:
             return scene
         cells = {f: d[f"clusters.{f}"] for f in CLUSTER_FIELDS}

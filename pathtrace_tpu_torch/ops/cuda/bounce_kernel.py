@@ -49,6 +49,7 @@ class PtParams(ctypes.Structure):
         ("tan_x", ctypes.c_float), ("tan_y", ctypes.c_float),
         ("width", ctypes.c_int), ("height", ctypes.c_int),
         ("num_pix", ctypes.c_int), ("lanes", ctypes.c_int), ("k_pix", ctypes.c_int),
+        ("num_pix_total", ctypes.c_int), ("pix_offset", ctypes.c_int),
         ("num_tris", ctypes.c_int), ("num_spheres", ctypes.c_int),
         ("num_lights", ctypes.c_int),
         ("key0", ctypes.c_uint), ("key1", ctypes.c_uint),
@@ -115,8 +116,19 @@ def build_fused_pack(scene: Scene) -> FusedPack:
 
 
 def make_params(camera: Camera, cfg: IntegratorConfig, base_key, pack: FusedPack,
-                lanes: int, spp: int, sample_offset: int) -> PtParams:
-    num_pix = camera.width * camera.height
+                lanes: int, spp: int, sample_offset: int, *, pix_offset: int = 0,
+                num_pix_local=None) -> PtParams:
+    """The launch's parameters over local path ids [sample_offset * num_pix,
+    (sample_offset + spp) * num_pix) of the pixel slice [pix_offset,
+    pix_offset + num_pix) (num_pix = num_pix_local, the whole image by
+    default) of the camera's image, whose pixel count is num_pix_total:
+    the kernel keys RNG streams and camera rays by global path id, as
+    wavefront._make_to_global."""
+    npt = camera.width * camera.height
+    num_pix = npt if num_pix_local is None else num_pix_local
+    if pix_offset < 0 or pix_offset + num_pix > npt:
+        raise ValueError(f"pixel slice [{pix_offset}, {pix_offset + num_pix}) outside the "
+                         f"image's {npt} pixels")
     k0, k1 = rng.key_words(base_key)
     tx, ty = camera.tan_half_fov()
     vec = lambda a: (ctypes.c_float * 3)(*(float(x) for x in a))
@@ -125,7 +137,7 @@ def make_params(camera: Camera, cfg: IntegratorConfig, base_key, pack: FusedPack
         cam_pos=vec(camera.pos), cam_forward=vec(camera.forward),
         cam_up=vec(camera.up), cam_right=vec(camera.right), tan_x=tx, tan_y=ty,
         width=camera.width, height=camera.height, num_pix=num_pix, lanes=lanes,
-        k_pix=check_lanes(lanes, num_pix),
+        k_pix=check_lanes(lanes, num_pix), num_pix_total=npt, pix_offset=pix_offset,
         num_tris=pack.tri_geo.shape[0], num_spheres=pack.spheres.shape[0],
         num_lights=pack.lights.shape[0], key0=k0, key1=k1,
         max_bounce=cfg.max_bounce, rr_bounce=cfg.rr_bounce,
@@ -217,18 +229,22 @@ def launch(pack: FusedPack, params: PtParams):
 
 
 def fused_chunk(pack: FusedPack, camera: Camera, spp: int, sample_offset: int, base_key,
-                cfg: IntegratorConfig, lanes: int):
+                cfg: IntegratorConfig, lanes: int, *, pix_offset: int = 0, num_pix_local=None):
     """((H, W, 3) mean image, rays traced) of one kernel launch over path ids
-    [sample_offset*num_pix, (sample_offset+spp)*num_pix)."""
-    num_pix = camera.width * camera.height
-    rng.check_path_ids(num_pix, spp, sample_offset)
-    params = make_params(camera, cfg, base_key, pack, lanes, spp, sample_offset)
+    [sample_offset*num_pix, (sample_offset+spp)*num_pix); on a pixel slice
+    (make_params' keywords) the flat (num_pix_local, 3) slice instead."""
+    params = make_params(camera, cfg, base_key, pack, lanes, spp, sample_offset,
+                         pix_offset=pix_offset, num_pix_local=num_pix_local)
+    num_pix = params.num_pix
+    rng.check_path_ids(params.num_pix_total, spp, sample_offset)
     film, rays = launch(pack, params)
     # film slot k*lanes + i belongs to pixel (i + k*lanes) % num_pix
     if num_pix >= lanes:
         film_pix = film
     else:
         film_pix = film.reshape(lanes // num_pix, num_pix, 3).sum(dim=0)
+    if num_pix_local is not None:
+        return film_pix / spp, int(rays.sum())
     img = film_pix.reshape(camera.height, camera.width, 3) / spp
     return img, int(rays.sum())
 
@@ -246,7 +262,8 @@ def auto_fused_config(num_pix: int, target_lanes: int = 65536) -> int:
 
 def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
                            cfg: IntegratorConfig = None, lanes: int = 65536,
-                           chunk_spp: int = 64, *, device="cuda"):
+                           chunk_spp: int = 64, *, sample_offset: int = 0, pix_offset: int = 0,
+                           num_pix_local=None, device="cuda"):
     """Fused-engine render -> ((H, W, 3) image on `device`, rays traced).
 
     Same estimator as render_wavefront; spp is chunked like
@@ -254,24 +271,31 @@ def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
     chunk is one kernel launch; on the CPU it is the plain wavefront. Only
     cosine hemisphere sampling exists in the kernel (as in the JAX fused
     engine, whose bsdf_t has no uniform lobe): hemisphere="uniform" raises.
+    The samples are [sample_offset, sample_offset + spp). pix_offset and
+    num_pix_local render one pixel slice (the shard body
+    of parallel/mesh.py::render_fused_sharded), keyed by global path ids,
+    and return its flat (num_pix_local, 3) image.
     """
     cfg = IntegratorConfig() if cfg is None else cfg
     if cfg.hemisphere != "cosine":
         raise ValueError("the fused engine samples the cosine hemisphere only; "
                          f"got hemisphere={cfg.hemisphere!r}")
     dev = resolve_device(device)
-    num_pix = camera.width * camera.height
-    check_lanes(lanes, num_pix)
-    rng.check_path_ids(num_pix, spp)
+    npt = camera.width * camera.height
+    check_lanes(lanes, npt if num_pix_local is None else num_pix_local)
+    rng.check_path_ids(npt, spp, sample_offset)
     scene = scene.to(dev)
+    sliced = dict(pix_offset=pix_offset, num_pix_local=num_pix_local)
     if dev.type == "cpu":
         def run_chunk(n, offset):
-            return _run_wavefront(scene, camera, n, base_key, cfg, lanes, offset)
+            return _run_wavefront(scene, camera, n, base_key, cfg, lanes,
+                                  sample_offset + offset, **sliced)
     elif dev.type == "cuda":
         pack = build_fused_pack(scene)
 
         def run_chunk(n, offset):
-            return fused_chunk(pack, camera, n, offset, base_key, cfg, lanes)
+            return fused_chunk(pack, camera, n, sample_offset + offset, base_key, cfg, lanes,
+                               **sliced)
     else:
         raise ValueError(f"no fused engine for device {dev}")
-    return accumulate_chunks(run_chunk, camera, spp, chunk_spp, dev)
+    return accumulate_chunks(run_chunk, camera, spp, chunk_spp, dev, num_pix_local)

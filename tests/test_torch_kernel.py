@@ -358,3 +358,44 @@ def test_kernel_bit_equal_to_plain(cuda, case):
     assert torch.equal(img, plain["image"])
     assert torch.equal(lane_rays, plain["lane_rays"])
     assert rays == plain["rays"]
+
+
+# pixel slices (parallel/mesh.py): (scene, side, spp, n_shards, lanes a shard, sample_offset)
+SLICE_CASES = {
+    "k_pix_2": ("spheres", 32, 16, 2, 256, 0),
+    "lanes_over_pixels": ("spheres", 32, 16, 4, 512, 0),
+    "glass_8_slices": ("glass", 32, 8, 8, 128, 0),
+    # global path ids just below 2**31 on the last slice
+    "path_ids_near_2_31": ("spheres", 32, 4, 4, 256, 2 ** 31 // 1024 - 4 - 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_kernel_slices_bit_equal(cuda, case):
+    """B1 keyed by global path ids: each slice (pix_offset != 0 but the
+    first) bit-equal to the plain wavefront over the same slice, and the
+    slices together bit-equal to the whole image in one launch."""
+    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront
+    from pathtrace_tpu_torch.parallel import mesh as M
+
+    scene_name, side, spp, n, lanes, offset = SLICE_CASES[case]
+    scene = SCENES[scene_name]().to(cuda)
+    cam = procedural.default_camera(side, side)
+    key, cfg = rng.make_key(8), IntegratorConfig()
+    pack = bk.build_fused_pack(scene)
+    npl = side * side // n
+    parts, total = [], 0
+    for shard in range(n):
+        sliced = dict(pix_offset=shard * npl, num_pix_local=npl)
+        img, rays = bk.fused_chunk(pack, cam, spp, offset, key, cfg, lanes, **sliced)
+        p_img, p_rays = _run_wavefront(scene, cam, spp, key, cfg, lanes, offset,
+                                       search=mt.mt_closest_plain, **sliced)
+        assert torch.equal(img, p_img) and rays == p_rays, f"slice {shard}"
+        parts.append(img)
+        total += rays
+    whole, w_rays = bk.fused_chunk(pack, cam, spp, offset, key, cfg, lanes * n)
+    assert torch.equal(torch.cat(parts).reshape(side, side, 3), whole) and total == w_rays
+    if offset == 0:
+        img, rays = M.render_fused_sharded(scene, cam, spp, key, M.make_ray_mesh(cuda), cfg,
+                                           lanes * n)
+        assert torch.equal(img, whole) and rays == w_rays

@@ -168,8 +168,13 @@ def test_model_matrix_helpers_equal():
 
 
 def test_load_obj_scene_with_bvh_raises(small_obj):
-    with pytest.raises(NotImplementedError, match="A7"):
-        obj.load_obj_scene(small_obj)
+    """The default build_bvh=True no longer raises: it builds the SAH BVH
+    and leaf-ordered triangles equal to the JAX loader's."""
+    room = procedural.cornell_walls()
+    got = obj.load_obj_scene(small_obj, scale=2.0, extra=room)
+    ref = jobj.load_obj_scene(small_obj, scale=2.0, extra=jproc.cornell_walls())
+    assert got.bvh is not None and got.bvh.num_nodes == ref.bvh.num_nodes
+    assert_scenes_equal(scene_to_numpy(got), scene_to_numpy(ref))
 
 
 @pytest.mark.parametrize("subdivisions", [0, 2, 4])

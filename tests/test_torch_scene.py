@@ -120,11 +120,14 @@ def test_preset_table():
 @pytest.mark.parametrize("name", ["cornell64", "diffuse256_nonee", "glass512",
                                   "reference_demo"])
 def test_preset_scene_matches_unreordered_jax_scene(name):
-    """Small presets stay on the brute raycast, without JAX's BVH reorder,
-    so compare against the JAX preset's unreordered scene (the mesh
-    presets: test_torch_mesh.py::test_mesh_preset_matches_jax)."""
-    ref = scene_to_numpy(jpresets.get_preset(name).build_scene())
+    """Small presets equal JAX's preset scenes leaf for leaf: a `use_bvh`
+    preset gets the SAH BVH and JAX's leaf order (with_bvh), cornell64
+    (use_bvh False) keeps the original order (the mesh presets:
+    test_torch_mesh.py::test_mesh_preset_matches_jax)."""
+    ref = scene_to_numpy(jpresets.build_preset_scene(jpresets.get_preset(name),
+                                                     to_device=False))
     got = scene_to_numpy(presets.build_preset_scene(presets.get_preset(name)))
+    assert set(got) == set(ref) and ("bvh.bmin" in ref) == presets.get_preset(name).use_bvh
     for k in ref:
         if k != "light_pack":
             np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(ref[k]), err_msg=k)

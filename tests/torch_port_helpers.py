@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 
+from pathtrace_tpu_torch.accel.bvh import BVH_FIELDS
 from pathtrace_tpu_torch.models.scene import CLUSTER_FIELDS
 
 MAT_FIELDS = ("emittance", "albedo", "specular", "opacity", "roughness", "metallic")
@@ -30,6 +31,12 @@ def scene_to_numpy(scene) -> dict:
         # KD cells (both packages name their leaves alike)
         for f in CLUSTER_FIELDS:
             d[f"clusters.{f}"] = np.asarray(getattr(clusters, f))
+    bvh = getattr(scene, "bvh", None)
+    if bvh is not None:
+        # the SAH BVH (both packages name its leaves alike)
+        for f in BVH_FIELDS:
+            d[f"bvh.{f}"] = np.asarray(getattr(bvh, f))
+        d["bvh.max_depth"] = bvh.max_depth
     return d
 
 
