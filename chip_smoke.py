@@ -87,6 +87,24 @@ benchmarks). Phases, one line each (or one per comparison):
      sphere, assets/blob82k.obj) loaded with its BVH and KD cells and
      rendered at 64x64 @ 16 spp through the KD kernel, bit-equal to the
      plain search.
+  8. the device-validation tools (tools/torch_*.py) at small depth: the
+     reference's own job at its full resolution, 1080x2400 (Cornell +
+     spheres through the fused engine, 2,592,000 lanes), 2 passes x 4 spp,
+     straight and with the accumulator reloaded from its checkpoint after
+     pass 1, bit-equal (paths/s, B1 launches, a valid PNG); B1 against its
+     plain version on that whole frame in one launch of 2,592,000 lanes, one
+     pixel a lane, at the sample whose path ids cross 2**31, and on a
+     65,536-pixel slice of it at 2 spp across 2**31, bit-equal, and ids
+     past 2**32 refused before any launch; mesh gradients, the wavetape
+     against scan-AD on blob82k with KD cells of 1024 at 32x32 @ 4 spp
+     through B2 (per field below 1e-3, the primals within 1e-3, B2
+     launches), and both again through the plain KD search (primals
+     bit-equal, grads within 1e-5); forward mode against reverse mode on a
+     random tangent of the six material fields at 16x16 @ 4 spp through B3
+     (below 1e-3, B3 launches), and the forward mode again through the
+     plain search (bit-equal); the five rows of
+     tools/torch_card_cpu_agreement.py against the committed CPU goldens;
+     the phase's seconds.
 
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
@@ -109,107 +127,23 @@ import time
 import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+# the least-time model of every kernel's work (FP32 peak and HBM rate of one
+# H100 SXM, operations counted from the sources)
+from pathtrace_tpu_torch.profile_main import (HIT_BYTES, RAY_BYTES, SLAB_OPS,  # noqa: E402
+                                              b1_ops, bound, mt_pair_ops, tensor_bytes)
 
 
 def fail(msg: str):
     raise RuntimeError(msg)
 
 
-# Least-time model of a kernel's work on one H100 SXM (NVIDIA's data sheet):
-# FP32 outside the tensor cores, and HBM3.
-FP32_PEAK = 67e12   # operations/s
-HBM_RATE = 3.35e12  # bytes/s
-# FP32 operations, counted from the sources: the stages of one
-# Möller-Trumbore test (csrc/mt.cuh), each needed only where the one before
-# passed: p = dir x e2 and det (14); tvec and u where det >= EPS (8); q, v
-# and u + v where 0 <= u <= det (15); 1/det and t where v >= 0 and
-# u + v <= det (7) (mt_pair_ops counts them from a run's rays). One sphere
-# test (intersect_spheres_all), one ray-cell slab test (two corner
-# subtractions and products, 12). Integer work (Philox) is not counted, so
-# the bound stays a least time.
-MT_STAGE_OPS = (14, 8, 15, 7)
-SPHERE_OPS, SLAB_OPS = 28, 12
 # The bounce kernel as ptxas built it for sm_90a before it took pixel slices
 # (global path ids): a thread's registers and the resident warps per SM on
 # the main path's pack. The slice arithmetic must not cost the whole-image
 # launch either.
 B1_MAX_REGISTERS, B1_MIN_WARPS_PER_SM = 108, 16
-# One bounce's shading of a gltfpbr surface (the room's walls), counted by
-# hand from csrc/bsdf.cuh and csrc/bounce_kernel.cu function by function:
-# + - * / and sqrt count 1, and so does each special function (powf, sinf,
-# cosf, atanf); comparisons, selects, min, max and abs count 0; a value a
-# function computes twice counts once (dot(n, wi) in eval_gltfpbr). Parts:
-# dot 5, cross 9, normalize 10, lerp 10, fresnel_schlick 21 (16 when it
-# shares its sqlen test), microfacet_distribution 13, microfacet_shadowing
-# 41 (31 when it shares the eval's two dots). The sample is the diffuse
-# branch, which the walls take for all but their small Fresnel share.
-# SHADE_PARTS is charged to every shaded hit; NEE_VISIBLE_PARTS, NEE's BSDF
-# term, only to a hit whose shadow ray reaches the sampled light: the
-# kernel's nee() returns before it otherwise.
-SHADE_PARTS = {
-    "hit frame (barycentric interpolation, three normalizes, hit point)": 90,
-    "emission test": 5,
-    "NEE light sample": 41,
-    "sample_gltfpbr (Fresnel mean 34, cosine hemisphere 34)": 68,
-    "eval_gltfpbr": 147,
-    "pdf_gltfpbr": 84,
-    "dead-sample test": 5,
-    "weight, next ray, Russian roulette": 25,
-}
-NEE_VISIBLE_PARTS = {
-    "cos_a and pdf": 20,
-    "eval_gltfpbr": 147,
-    "contribution": 16,
-}
-SHADE_OPS = sum(SHADE_PARTS.values())  # 465
-NEE_VISIBLE_OPS = sum(NEE_VISIBLE_PARTS.values())  # 183
-RAY_BYTES = 32      # org, dir, t_min, t_max: float32
-HIT_BYTES = 17      # hit (1), t, u, v, idx (4 each)
-
-
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of ops at FP32_PEAK and bytes at
-    HBM_RATE."""
-    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def mt_pair_ops(table, org, dirn):
-    """(R,) float64: the FP32 operations that the Möller-Trumbore tests of
-    each ray against the rows [v0 | e1 | e2] of `table` need, stage by stage
-    (MT_STAGE_OPS); the kernels run all four stages for every pair."""
-    import torch
-
-    from pathtrace_tpu_torch.utils.math3 import EPS
-
-    v0, e1, e2 = (table[None, :, i:i + 3] for i in (0, 3, 6))
-    rows = max(1, (1 << 22) // max(table.shape[0], 1))
-    out = []
-    for i in range(0, org.shape[0], rows):
-        o, d = org[i:i + rows, None, :], dirn[i:i + rows, None, :]
-        p = torch.linalg.cross(d.expand(-1, table.shape[0], -1), e2.expand(d.shape[0], -1, -1))
-        det = (p * e1).sum(-1)
-        tvec = o - v0
-        u = (p * tvec).sum(-1)
-        v = (torch.linalg.cross(tvec, e1.expand_as(tvec)) * d).sum(-1)
-        s1 = det >= EPS
-        s2 = s1 & (u >= 0) & (u <= det)
-        s3 = s2 & (v >= 0) & (u + v <= det)
-        a, b, c, e = MT_STAGE_OPS
-        out.append((a + b * s1.double() + c * s2.double() + e * s3.double()).sum(-1))
-    return torch.cat(out) if out else torch.zeros((0,), dtype=torch.float64, device=org.device)
-
-
-def tensor_bytes(obj) -> int:
-    """Bytes of every tensor in a (nested) dataclass."""
-    import dataclasses
-
-    import torch
-    if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
-    if dataclasses.is_dataclass(obj):
-        return sum(tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
-    return 0
 
 
 def timed_launches(fn, n: int = 20) -> float:
@@ -914,6 +848,144 @@ def shard_phase(smi: str, main_mean: float, main_occ: dict) -> None:
         torch.distributed.destroy_process_group()
 
 
+def evidence_phase(smi: str) -> None:
+    """Phase 8: the reference's own job at its full resolution, B1 on a slice
+    of it at path ids across 2**31, the 2**32 refusal, mesh gradients
+    through B2, forward mode through B3, and the five card-vs-CPU agreement
+    rows, each through the tool that runs it at full size
+    (tools/torch_reference_frame.py, tools/torch_gradcheck_card.py,
+    tools/torch_card_cpu_agreement.py). Each comparison through a kernel
+    is also made through its plain version."""
+    import torch
+
+    from pathtrace_tpu_torch.integrator.config import IntegratorConfig
+    from pathtrace_tpu_torch.integrator.wavefront import _run_wavefront
+    from pathtrace_tpu_torch.models import procedural
+    from pathtrace_tpu_torch.ops import mt_closest as mt
+    from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+    from pathtrace_tpu_torch.utils import rng
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_card_cpu_agreement as agreement
+    import torch_gradcheck_card as gradcheck
+    import torch_reference_frame as reference
+
+    t_phase = time.perf_counter()
+    # the reference's job at 1080x2400, 2 passes x 4 spp: straight, and with
+    # the accumulator dropped after pass 1 and reloaded from its checkpoint
+    w, h = 1080, 2400
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, s_img = reference.render_job(w, h, 2, 4, device="cuda", out_dir=tmp,
+                                               resume_at=0, write_png=False)
+        resumed, r_img = reference.render_job(w, h, 2, 4, device="cuda", out_dir=tmp,
+                                              resume_at=1)
+        check_png(os.path.join(tmp, f"torch_reference_frame_{w}x{h}_2x4spp.png"), w, h)
+    same = torch.equal(s_img, r_img)
+    print(f"[8 reference] cornell+spheres {w}x{h}, 2 passes x 4 spp, lanes {resumed['lanes']}: "
+          f"{resumed['b1_launches']} B1 launches, {resumed['wall_seconds']:.4f} s, "
+          f"{resumed['paths_per_sec'] / 1e6:.3f}M paths/s, {resumed['rays_per_sec'] / 1e6:.3f}M "
+          f"rays/s (straight: {straight['paths_per_sec'] / 1e6:.3f}M); resumed after pass "
+          f"{resumed['resumed_at_pass']} from the checkpoint, bit-equal to the straight run: "
+          f"{same}; mean {resumed['image_mean']:.6f} on {smi}", flush=True)
+    if not (same and resumed["pass"] and straight["pass"] and resumed["resumed_at_pass"] == 1
+            and resumed["b1_launches"] == 2):
+        fail("the reference job at full resolution failed, or its resume is not bit-equal")
+
+    # B1 against its plain version on the reference job's own launch: the
+    # whole frame, 2,592,000 lanes, one pixel a lane, at the sample whose
+    # path ids cross 2**31 (the JAX package's int32 ids would wrap there:
+    # ROADMAP C9)
+    scene = procedural.cornell_box_scene(include_spheres=True).to("cuda")
+    cam, cfg = procedural.default_camera(w, h), IntegratorConfig()
+    key = rng.iter_key(rng.make_key(0), 1000)
+    num_pix = w * h
+    lanes, sample = bk.auto_fused_config(num_pix), 2 ** 31 // num_pix
+    first, last = sample * num_pix, (sample + 1) * num_pix - 1
+    bk.LAUNCHES = 0
+    (k_img, k_rays), k_ms = timed(lambda: bk.render_wavefront_fused(
+        scene, cam, 1, key, cfg, lanes, chunk_spp=1, sample_offset=sample, device="cuda"))
+    launches = bk.LAUNCHES
+    (p_img, p_rays), p_ms = timed(lambda: _run_wavefront(
+        scene, cam, 1, key, cfg, lanes, sample, search=mt.mt_closest_plain))
+    err = (k_img - p_img).abs().max().item()
+    print(f"[8 ids] B1 vs plain on the whole {w}x{h} frame, {lanes} lanes ({launches} launch), "
+          f"sample {sample}: path ids {first}-{last} across 2**31; max abs err {err:.3e}, rays "
+          f"{k_rays} vs {p_rays}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+    if not (first < 2 ** 31 <= last and launches == 1 and torch.equal(k_img, p_img)
+            and k_rays == p_rays and bool(torch.isfinite(k_img).all())):
+        fail("B1 is not bit-equal to its plain version on the whole frame across 2**31")
+
+    # and on a 65,536-pixel slice of that frame whose path ids cross 2**31 in
+    # its first sample (the slice's branch of the kernel's global ids)
+    npl = 65536
+    pix0 = 2 ** 31 - sample * num_pix - npl // 2
+    first, last = sample * num_pix + pix0, (sample + 1) * num_pix + pix0 + npl - 1
+    k_img, k_rays = bk.render_wavefront_fused(scene, cam, 2, key, cfg, npl, chunk_spp=2,
+                                              sample_offset=sample, pix_offset=pix0,
+                                              num_pix_local=npl, device="cuda")
+    p_img, p_rays = _run_wavefront(scene, cam, 2, key, cfg, npl, sample, pix_offset=pix0,
+                                   num_pix_local=npl, search=mt.mt_closest_plain)
+    err = (k_img - p_img).abs().max().item()
+    print(f"[8 ids] B1 vs plain on pixels [{pix0}, {pix0 + npl}) of {w}x{h}, samples "
+          f"{sample}-{sample + 1}: path ids {first}-{last} across 2**31; max abs err {err:.3e}, "
+          f"rays {k_rays} vs {p_rays}", flush=True)
+    if not (first < 2 ** 31 <= last and err == 0.0 and k_rays == p_rays
+            and bool(torch.isfinite(k_img).all())):
+        fail("B1 is not bit-equal to its plain version at path ids across 2**31")
+    launches = bk.LAUNCHES
+    try:
+        bk.render_wavefront_fused(scene, cam, 1, key, cfg, num_pix,
+                                  sample_offset=2 ** 32 // num_pix, device="cuda")
+    except ValueError as e:
+        refused = "Philox" in str(e) and bk.LAUNCHES == launches
+        print(f"[8 ids] sample {2 ** 32 // num_pix} (ids past 2**32): refused before any "
+              f"launch: {refused} ({e})", flush=True)
+    else:
+        refused = False
+    if not refused:
+        fail("path ids at 2**32 were not refused")
+
+    # mesh gradients through B2: the wavetape against scan-AD on blob82k
+    blob = procedural.blob_mesh_scene().with_kd_binned(max_tris=1024).to("cuda")
+    m = gradcheck.mesh_grads("cuda", blob)
+    print(f"[8 grads] mesh {m['scene']} {m['resolution'][0]}x{m['resolution'][1]}@{m['spp']}spp: "
+          f"{m['b2_launches']} B2 launches, wavetape vs scan-AD max rel err "
+          f"{max(m['wavetape_vs_scan_ad_max_rel_err'].values()):.3e}, primal max abs diff "
+          f"{m['primal_max_abs_diff']:.3e}, {m['seconds']:.2f} s", flush=True)
+    p = m["plain_search"]
+    print(f"[8 grads] the same through the plain KD search: {p['launches']} kernel launches, "
+          f"primals bit-equal: {p['primal_equal']}, grads max rel err wavetape "
+          f"{max(p['max_rel_err']['wavetape'].values()):.3e}, scan-AD "
+          f"{max(p['max_rel_err']['scan_ad'].values()):.3e} (bar {gradcheck.PLAIN_GRAD_TOL})",
+          flush=True)
+    if not (m["pass"] and p["pass"]):
+        fail("mesh gradients through B2 disagree with scan-AD or with the plain search")
+
+    # forward mode against reverse mode, every search through B3
+    f = gradcheck.forward_vs_reverse("cuda", 16, 4)
+    print(f"[8 grads] forward vs reverse, cornell+spheres 16x16@4spp, random tangent over the "
+          f"six fields: jvp {f['jvp']:.6f}, vjp dot {f['vjp_dot']:.6f}, rel err "
+          f"{f['rel_err']:.3e}; the forward render's B3 launches {f['forward_launches']['b3']}, "
+          f"{f['forward_seconds']:.2f} s (reverse {f['reverse_seconds']:.2f} s)", flush=True)
+    p = f["plain_search"]
+    print(f"[8 grads] forward mode through the plain search: jvp {p['jvp']:.6f}, loss "
+          f"{p['loss']:.6f}, {p['launches']} kernel launches, bit-equal to B3's: {p['equal']}",
+          flush=True)
+    if not f["pass"] or f["forward_launches"]["b3"] < 1:
+        fail("forward mode disagrees with reverse mode or with the plain search, or launched "
+             "no B3")
+
+    # the five rows of the card-vs-CPU agreement against the committed goldens
+    for row in agreement.agreement_rows("cuda", blob):
+        print(f"[8 agreement] {row['run']} vs {row['golden']}: pixel agreement "
+              f"{row['pixel_agreement']:.6f} (bar {row['min_agree']}), mean rel "
+              f"{row['mean_rel_diff']:.3e} (bar {row['max_mean_rel']}), ok {row['ok']}",
+              flush=True)
+        if not row["ok"]:
+            fail(f"{row['run']} disagrees with the CPU golden {row['golden']}")
+    print(f"[8 done] phase 8 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -921,7 +993,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from pathtrace_tpu_torch import bench
     from pathtrace_tpu_torch.integrator.config import IntegratorConfig
     from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
@@ -1038,12 +1109,11 @@ def main() -> int:
     need = schedule_share(scene, cam, 32, pass_key, cfg, lanes, search=mt.mt_closest_plain,
                           pair_ops=lambda org, dirn: mt_pair_ops(table, org, dirn))
     mt_ops, hits, c_rays, iters = need["mt_ops"], need["hits"], need["rays"], need["iters"]
-    b1_ops = (mt_ops + k_rays * scene.num_spheres * SPHERE_OPS + hits * SHADE_OPS
-              + need["visible"] * NEE_VISIBLE_OPS)
-    b1_ms, b1_by = bound(b1_ops, tensor_bytes(scene) + k_img.numel() * 4)
+    main_ops = b1_ops(scene, need)
+    b1_ms, b1_by = bound(main_ops, tensor_bytes(scene) + k_img.numel() * 4)
     print(f"[4 main] bound at 32spp: {mt_ops:.4e} MT operations needed over {c_rays} rays "
           f"({mt_ops / (c_rays * scene.num_tris):.2f} a pair), {hits} shaded hits, "
-          f"{need['visible']} of their shadow rays reached the light; {b1_ops:.4e} FP32 "
+          f"{need['visible']} of their shadow rays reached the light; {main_ops:.4e} FP32 "
           f"operations, {b1_ms:.3f} ms ({b1_by}); the kernel takes {k_ms / b1_ms:.1f}x its "
           f"bound", flush=True)
     if c_rays != p_rays or not torch.equal(need["image"], p_img.float()):
@@ -1073,6 +1143,7 @@ def main() -> int:
     mt_entry = train_phase(smi)
     parity_phase(smi)
     shard_phase(smi, img.mean().item(), occ)
+    evidence_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1088,7 +1159,10 @@ def main() -> int:
         "bound_by": b1_by,
         "library_ms": None,
         "note": "keyed by global path ids on a pixel slice (PtParams num_pix_total, "
-                "pix_offset), held bit-equal on slices in phase 7",
+                "pix_offset), held bit-equal on slices in phase 7 and at path ids across "
+                "2**31 in phase 8",
+        "inlines": {"name": "bsdf_t lobes (B1b)", "source": "pathtrace_tpu_torch/csrc/bsdf.cuh",
+                    "replaces": "pathtrace_tpu/ops/pallas/bsdf_t.py:203-409"},
     }, kd_entry, mt_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,19 @@ def nvidia_smi_line() -> str:
     return (out.splitlines() or ["unavailable"])[0]
 
 
+def card_fields(dev) -> dict:
+    """{"device", "card", "power_limit"} of a run on `dev`: the card's name
+    and power limit as nvidia-smi prints them (first card), both None on the
+    CPU, where no card was measured."""
+    import torch
+
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return {"device": str(dev), "card": None, "power_limit": None}
+    name, _, limit = nvidia_smi_line().partition(", ")
+    return {"device": str(dev), "card": name, "power_limit": limit or None}
+
+
 def nvcc_version() -> str:
     from pathtrace_tpu_torch.ops.cuda import build
     try:

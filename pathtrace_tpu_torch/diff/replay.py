@@ -194,7 +194,7 @@ def _camera_rays(scene: Scene, camera: Camera, sample_idx: int, base_key,
     its rays by global id, so N-shard grads are path for path 1-shard's."""
     num_pix = camera.width * camera.height
     npl = num_pix if num_pix_local is None else num_pix_local
-    pixel = pix_offset + torch.arange(npl, dtype=torch.int32, device=scene.device)
+    pixel = pix_offset + torch.arange(npl, dtype=torch.int64, device=scene.device)
     px = (pixel % camera.width).to(torch.float32)
     py = (pixel // camera.width).to(torch.float32)
     ray_ids = sample_idx * num_pix + pixel
@@ -210,7 +210,9 @@ def _material_grads_replay_impl(scene: Scene, camera: Camera, spp: int, base_key
     """Record/replay gradient core over a pixel slice (the whole image when
     num_pix_local is None): per sample one recorded forward and one backward
     through the replay. loss_grad_flat: (num_pix_local, 3) cotangent, divided
-    by spp here. Returns (g_tri, g_sph, (num_pix_local, 3) image slice)."""
+    by spp here. Returns (g_tri, g_sph, (num_pix_local, 3) image slice).
+    Path ids stop below rng.TAPE_ID_LIMIT (2**31)."""
+    rng.check_path_ids(camera.width * camera.height, spp, limit=rng.TAPE_ID_LIMIT)
     ct = loss_grad_flat / float(spp)
     tri, sph = leaf_materials(scene.mat), leaf_materials(scene.spheres.mat)
     live = with_materials(scene, tri, sph)

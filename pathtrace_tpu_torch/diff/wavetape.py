@@ -32,6 +32,7 @@ from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.megakernel import init_state, make_bounce_fn
 from pathtrace_tpu_torch.integrator.wavefront import _make_to_global, _regen_rays, _run_wavefront
 from pathtrace_tpu_torch.models.scene import Scene
+from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
 
 _HIT_BIT = 1 << 30
@@ -69,7 +70,10 @@ def record_paths_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
 
     pix_offset and num_pix_local restrict the pool to a pixel slice as in wavefront._run_wavefront: p is then a local path id and
     num_pix the slice's pixel count, while RNG and camera rays take global
-    ids, so an N-shard recording is path for path the 1-shard one."""
+    ids, so an N-shard recording is path for path the 1-shard one. Path ids
+    stop below rng.TAPE_ID_LIMIT (2**31)."""
+    rng.check_path_ids(camera.width * camera.height, spp, sample_offset,
+                       limit=rng.TAPE_ID_LIMIT)
     num_pix = camera.width * camera.height if num_pix_local is None else num_pix_local
     total = num_pix * spp
     mi = cfg.max_iters

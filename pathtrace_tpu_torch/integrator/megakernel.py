@@ -257,13 +257,14 @@ def init_state(org: torch.Tensor, dirn: torch.Tensor):
 def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
                       ray_ids: torch.Tensor, base_key,
                       cfg: IntegratorConfig = IntegratorConfig(),
-                      raycast_fn=None, sample_mat_fn=None):
+                      raycast_fn=None, sample_mat_fn=None, *, search=None):
     """Radiance for a batch of camera rays in lockstep, up to cfg.max_iters
     iterations (every lane shares the global iteration counter). Returns
     ((R, 3) radiance, int rays traced). The loop stops early once every
     lane is dead: dead lanes change nothing. cfg.remat recomputes each
-    iteration in the backward instead of storing it (megakernel.py:356-357)."""
-    bounce = make_bounce_fn(scene, cfg, base_key, raycast_fn=raycast_fn,
+    iteration in the backward instead of storing it (megakernel.py:356-357).
+    search, raycast_fn and sample_mat_fn as in make_bounce_fn."""
+    bounce = make_bounce_fn(scene, cfg, base_key, search=search, raycast_fn=raycast_fn,
                             sample_mat_fn=sample_mat_fn)
     state = init_state(org, dirn)
     rays = torch.zeros((), dtype=torch.int64, device=org.device)
@@ -280,7 +281,7 @@ def trace_paths_stats(scene: Scene, org: torch.Tensor, dirn: torch.Tensor,
 
 def trace_paths(scene: Scene, org, dirn, ray_ids, base_key,
                 cfg: IntegratorConfig = IntegratorConfig(),
-                raycast_fn=None, sample_mat_fn=None) -> torch.Tensor:
+                raycast_fn=None, sample_mat_fn=None, *, search=None) -> torch.Tensor:
     """Radiance only; see trace_paths_stats."""
     return trace_paths_stats(scene, org, dirn, ray_ids, base_key, cfg, raycast_fn,
-                             sample_mat_fn)[0]
+                             sample_mat_fn, search=search)[0]

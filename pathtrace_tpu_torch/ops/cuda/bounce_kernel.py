@@ -229,15 +229,26 @@ def launch(pack: FusedPack, params: PtParams):
 
 
 def fused_chunk(pack: FusedPack, camera: Camera, spp: int, sample_offset: int, base_key,
-                cfg: IntegratorConfig, lanes: int, *, pix_offset: int = 0, num_pix_local=None):
+                cfg: IntegratorConfig, lanes: int, *, pix_offset: int = 0, num_pix_local=None,
+                launch_events=None):
     """((H, W, 3) mean image, rays traced) of one kernel launch over path ids
     [sample_offset*num_pix, (sample_offset+spp)*num_pix); on a pixel slice
-    (make_params' keywords) the flat (num_pix_local, 3) slice instead."""
+    (make_params' keywords) the flat (num_pix_local, 3) slice instead. With
+    a list as launch_events, the (start, end) CUDA events recorded around
+    the launch are appended to it."""
     params = make_params(camera, cfg, base_key, pack, lanes, spp, sample_offset,
                          pix_offset=pix_offset, num_pix_local=num_pix_local)
     num_pix = params.num_pix
     rng.check_path_ids(params.num_pix_total, spp, sample_offset)
-    film, rays = launch(pack, params)
+    if launch_events is None:
+        film, rays = launch(pack, params)
+    else:
+        stream = torch.cuda.current_stream(pack.tri_geo.device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        film, rays = launch(pack, params)
+        end.record(stream)
+        launch_events.append((start, end))
     # film slot k*lanes + i belongs to pixel (i + k*lanes) % num_pix
     if num_pix >= lanes:
         film_pix = film
@@ -263,7 +274,7 @@ def auto_fused_config(num_pix: int, target_lanes: int = 65536) -> int:
 def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
                            cfg: IntegratorConfig = None, lanes: int = 65536,
                            chunk_spp: int = 64, *, sample_offset: int = 0, pix_offset: int = 0,
-                           num_pix_local=None, device="cuda"):
+                           num_pix_local=None, launch_events=None, device="cuda"):
     """Fused-engine render -> ((H, W, 3) image on `device`, rays traced).
 
     Same estimator as render_wavefront; spp is chunked like
@@ -274,7 +285,8 @@ def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
     The samples are [sample_offset, sample_offset + spp). pix_offset and
     num_pix_local render one pixel slice (the shard body
     of parallel/mesh.py::render_fused_sharded), keyed by global path ids,
-    and return its flat (num_pix_local, 3) image.
+    and return its flat (num_pix_local, 3) image. launch_events: as in
+    fused_chunk (on the CPU no launch records any).
     """
     cfg = IntegratorConfig() if cfg is None else cfg
     if cfg.hemisphere != "cosine":
@@ -295,7 +307,7 @@ def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
 
         def run_chunk(n, offset):
             return fused_chunk(pack, camera, n, sample_offset + offset, base_key, cfg, lanes,
-                               **sliced)
+                               launch_events=launch_events, **sliced)
     else:
         raise ValueError(f"no fused engine for device {dev}")
     return accumulate_chunks(run_chunk, camera, spp, chunk_spp, dev, num_pix_local)

@@ -29,8 +29,8 @@ the job:
 `schedule_share` (with `PathIterations` and `useful_share`) counts, from
 the plain wavefront, how much of a warp's time the bounce kernel's lanes
 spend on a path's work under two schedules of the same paths, and the
-hits, shadow rays and triangle-test work that chip_smoke.py's bound of the
-kernel charges.
+hits, shadow rays and triangle-test work that the kernel's bound charges:
+the least-time model (`bound`, `mt_pair_ops`, `b1_ops`) sits beside it.
 """
 
 from __future__ import annotations
@@ -146,6 +146,109 @@ def schedule_share(scene, camera, spp: int, base_key, cfg, lanes: int, sample_of
             "hits": hits, "nee_rays": nee_rays, "visible": reached,
             "mt_ops": float(mt_ops) if pair_ops is not None else None,
             "nested": nested, "in_place": in_place}
+
+
+# Least-time model of a kernel's work on one H100 SXM (NVIDIA's data sheet):
+# FP32 outside the tensor cores, and HBM3. chip_smoke.py and
+# tools/torch_reference_frame.py reckon every kernel's bound with it.
+FP32_PEAK = 67e12   # operations/s
+HBM_RATE = 3.35e12  # bytes/s
+# FP32 operations, counted from the sources: the stages of one
+# Möller-Trumbore test (csrc/mt.cuh), each needed only where the one before
+# passed: p = dir x e2 and det (14); tvec and u where det >= EPS (8); q, v
+# and u + v where 0 <= u <= det (15); 1/det and t where v >= 0 and
+# u + v <= det (7) (mt_pair_ops counts them from a run's rays). One sphere
+# test (intersect_spheres_all), one ray-cell slab test (two corner
+# subtractions and products, 12). Integer work (Philox) is not counted, so
+# the bound stays a least time.
+MT_STAGE_OPS = (14, 8, 15, 7)
+SPHERE_OPS, SLAB_OPS = 28, 12
+# One bounce's shading of a gltfpbr surface (the room's walls), counted by
+# hand from csrc/bsdf.cuh and csrc/bounce_kernel.cu function by function:
+# + - * / and sqrt count 1, and so does each special function (powf, sinf,
+# cosf, atanf); comparisons, selects, min, max and abs count 0; a value a
+# function computes twice counts once (dot(n, wi) in eval_gltfpbr). Parts:
+# dot 5, cross 9, normalize 10, lerp 10, fresnel_schlick 21 (16 when it
+# shares its sqlen test), microfacet_distribution 13, microfacet_shadowing
+# 41 (31 when it shares the eval's two dots). The sample is the diffuse
+# branch, which the walls take for all but their small Fresnel share.
+# SHADE_PARTS is charged to every shaded hit; NEE_VISIBLE_PARTS, NEE's BSDF
+# term, only to a hit whose shadow ray reaches the sampled light: the
+# kernel's nee() returns before it otherwise.
+SHADE_PARTS = {
+    "hit frame (barycentric interpolation, three normalizes, hit point)": 90,
+    "emission test": 5,
+    "NEE light sample": 41,
+    "sample_gltfpbr (Fresnel mean 34, cosine hemisphere 34)": 68,
+    "eval_gltfpbr": 147,
+    "pdf_gltfpbr": 84,
+    "dead-sample test": 5,
+    "weight, next ray, Russian roulette": 25,
+}
+NEE_VISIBLE_PARTS = {
+    "cos_a and pdf": 20,
+    "eval_gltfpbr": 147,
+    "contribution": 16,
+}
+SHADE_OPS = sum(SHADE_PARTS.values())  # 465
+NEE_VISIBLE_OPS = sum(NEE_VISIBLE_PARTS.values())  # 183
+RAY_BYTES = 32      # org, dir, t_min, t_max: float32
+HIT_BYTES = 17      # hit (1), t, u, v, idx (4 each)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of ops at FP32_PEAK and bytes at
+    HBM_RATE."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mt_pair_ops(table, org, dirn):
+    """(R,) float64: the FP32 operations that the Möller-Trumbore tests of
+    each ray against the rows [v0 | e1 | e2] of `table` need, stage by stage
+    (MT_STAGE_OPS); the kernels run all four stages for every pair."""
+    import torch
+
+    from pathtrace_tpu_torch.utils.math3 import EPS
+
+    v0, e1, e2 = (table[None, :, i:i + 3] for i in (0, 3, 6))
+    rows = max(1, (1 << 22) // max(table.shape[0], 1))
+    out = []
+    for i in range(0, org.shape[0], rows):
+        o, d = org[i:i + rows, None, :], dirn[i:i + rows, None, :]
+        p = torch.linalg.cross(d.expand(-1, table.shape[0], -1), e2.expand(d.shape[0], -1, -1))
+        det = (p * e1).sum(-1)
+        tvec = o - v0
+        u = (p * tvec).sum(-1)
+        v = (torch.linalg.cross(tvec, e1.expand_as(tvec)) * d).sum(-1)
+        s1 = det >= EPS
+        s2 = s1 & (u >= 0) & (u <= det)
+        s3 = s2 & (v >= 0) & (u + v <= det)
+        a, b, c, e = MT_STAGE_OPS
+        out.append((a + b * s1.double() + c * s2.double() + e * s3.double()).sum(-1))
+    return torch.cat(out) if out else torch.zeros((0,), dtype=torch.float64, device=org.device)
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor in a (nested) dataclass."""
+    import dataclasses
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
+
+
+def b1_ops(scene, need: dict) -> float:
+    """The bounce kernel's FP32 operations on the paths that schedule_share
+    counted (`need`, with pair_ops = mt_pair_ops over the scene's search
+    table): the Möller-Trumbore stages each ray needs, a sphere test per
+    ray and sphere, one shading per hit, and NEE's BSDF term per shadow ray
+    that reached the light."""
+    return (need["mt_ops"] + need["rays"] * scene.num_spheres * SPHERE_OPS
+            + need["hits"] * SHADE_OPS + need["visible"] * NEE_VISIBLE_OPS)
 
 
 def main() -> None:

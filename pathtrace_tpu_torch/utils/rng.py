@@ -123,10 +123,26 @@ def randint_from_uniform(u: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp((u * n).to(torch.int32), max=n - 1)
 
 
-def check_path_ids(num_pix: int, spp: int, sample_offset: int = 0) -> None:
-    """Path ids are int32 (sample * num_pix + pixel), as in the JAX
-    package; raise instead of wrapping when the pool would reach 2**31."""
-    if num_pix * (sample_offset + spp) >= 2 ** 31:
+# Path ids run to 2**32 on the primal paths: they are held in int64 and
+# Philox takes their low 32 bits as its counter word (uniforms,
+# pixel_jitter; kernel B1's `rid`), so every id below 2**32 has its own
+# stream. The JAX package holds them in int32 and wraps at 2**31 (ROADMAP
+# C9). The replay and wavetape gradients keep the int32 range of the JAX
+# package, their only reference (TAPE_ID_LIMIT): a wavetape of 2**31 paths
+# would also hold max_iters int32 words a path, 155 GB at the default 18.
+PATH_ID_LIMIT = 2 ** 32
+TAPE_ID_LIMIT = 2 ** 31
+
+
+def check_path_ids(num_pix: int, spp: int, sample_offset: int = 0,
+                   limit: int = PATH_ID_LIMIT) -> None:
+    """Raise when the path ids sample * num_pix + pixel of samples
+    [sample_offset, sample_offset + spp) reach `limit`: 2**32, the width of
+    the Philox counter word, where two paths would share a stream; or
+    TAPE_ID_LIMIT on the replay and wavetape gradient paths."""
+    if num_pix * (sample_offset + spp) >= limit:
+        what = ("the Philox counter word (uint32) would repeat" if limit == PATH_ID_LIMIT
+                else "the replay and wavetape gradients stop at the int32 range")
         raise ValueError(
-            f"{num_pix} pixels x {sample_offset + spp} samples reaches 2**31 "
-            "path ids; int32 ray ids would wrap")
+            f"{num_pix} pixels x {sample_offset + spp} samples reaches "
+            f"{num_pix * (sample_offset + spp)} path ids, the limit is {limit}: {what}")

@@ -13,7 +13,9 @@
 - The same-card A/B tools (tools/torch_bounce_ab.py, tools/torch_kd_ab.py)
   refuse to run without a card.
 - Every module of the JAX package has its counterpart in the port, or is in
-  NOT_PORTED with its reason (ROADMAP.md's "Not to port" list).
+  NOT_PORTED with its reason (ROADMAP.md's "Not to port" list); every tool
+  of tools/ has its tools/torch_<name>.py counterpart, or is in
+  TOOLS_NOT_PORTED with its reason.
 """
 
 import ast
@@ -262,3 +264,67 @@ def test_every_jax_module_has_a_counterpart():
     assert missing == [], f"JAX modules without a counterpart in the port: {missing}"
     assert set(NOT_PORTED) <= set(modules)
     assert not any((PKG / m).exists() for m in NOT_PORTED)
+
+
+# JAX tools whose counterpart has another name or was folded into another tool.
+TOOLS_RENAMED = {
+    "tpu_cpu_agreement.py": "torch_card_cpu_agreement.py",
+    "gradcheck_tpu.py": "torch_gradcheck_card.py",
+    "replay_memory.py": "torch_gradcheck_card.py",  # its section 4: peak backward memory
+}
+# JAX tools the port does not carry over, each with its reason (ROADMAP.md's
+# "Not to port" list and tools queue).
+_TPU_PROFILE = ("a jax.profiler trace of the JAX package on the TPU; the port's "
+                "profile_main.py traces the card with torch.profiler")
+_MOSAIC = "probes which shape casts Mosaic (the TPU kernel compiler) accepts"
+TOOLS_NOT_PORTED = {
+    "scaling_bench.py": "weak and strong scaling over several chips; one card shows nothing "
+                        "(the next tool to port, once a machine has more than one card)",
+    "tpu_profile.py": _TPU_PROFILE,
+    "tpu_profile_fused.py": _TPU_PROFILE,
+    "tpu_profile_mesh.py": _TPU_PROFILE,
+    "tpu_profile_mesh_bounce.py": _TPU_PROFILE,
+    "tpu_profile_mesh_bounce2.py": _TPU_PROFILE,
+    "tpu_profile_mesh_render.py": _TPU_PROFILE,
+    "parse_trace.py": "aggregates jax.profiler traces; torch.profiler's key_averages do it "
+                      "for the port (profile_main.py)",
+    "mosaic_probe.py": _MOSAIC,
+    "mosaic_probe2.py": _MOSAIC,
+    "mosaic_probe3.py": _MOSAIC,
+    "fused_ablate.py": "times the Pallas bounce kernel with sections ablated by its TPU-only "
+                       "`ablate` switches, which the port does not carry",
+    "hlo_collectives.py": "reads XLA's compiled HLO for async collectives on the TPU's ICI",
+    "layout_microbench.py": "times the TPU's (8, 128) vector-tile layouts of the Pallas kernel",
+    "lobe_sort_bench.py": "lobe-sorted against branchless shading under XLA's static shapes "
+                          "on the TPU",
+    "binned_profile.py": "stage times of the v1 binned traversal, which the port does not "
+                         "carry (ROADMAP: Not to port)",
+    "mesh_dispatch_bench.py": "candidate primitives of the v2/v3 pair dispatch (top_k, "
+                              "scatter-min), TPU workarounds the port does not carry",
+    "mesh_dispatch_bench2.py": "reduce chains of the v2/v3 pair dispatch, TPU workarounds the "
+                               "port does not carry",
+    "mesh_kernel_bench.py": "the v1 and v2 mesh raycasts on the TPU; the port's KD raycast has "
+                            "its A/B tool, tools/torch_kd_ab.py",
+    "fused_microbench.py": "one Pallas step in a lax.fori_loop on the TPU; the port's B1 has "
+                           "its A/B tool, tools/torch_bounce_ab.py",
+    "fused_sweep.py": "the Pallas kernel's (lanes, block_r, steps) grid on the TPU; B1 has no "
+                      "block_r and takes its lanes from auto_fused_config",
+    "gen_mesh_asset.py": "wrote assets/blob82k.obj once; the asset is in the repo and both "
+                         "packages load it",
+}
+
+
+def test_every_jax_tool_has_a_counterpart():
+    """Walks tools/ by path: each JAX tool (a tools/*.py not named
+    torch_*) has tools/torch_<name>.py (or its TOOLS_RENAMED counterpart),
+    or is in TOOLS_NOT_PORTED; nothing in TOOLS_NOT_PORTED is ported after
+    all."""
+    tools = REPO / "tools"
+    jax_tools = sorted(p.name for p in tools.glob("*.py") if not p.name.startswith("torch_"))
+    assert len(jax_tools) >= 30
+    missing = [t for t in jax_tools if t not in TOOLS_NOT_PORTED
+               and not (tools / TOOLS_RENAMED.get(t, f"torch_{t}")).is_file()]
+    assert missing == [], f"JAX tools without a counterpart in the port: {missing}"
+    assert set(TOOLS_NOT_PORTED) <= set(jax_tools) and set(TOOLS_RENAMED) <= set(jax_tools)
+    assert not any((tools / f"torch_{t}").exists() for t in TOOLS_NOT_PORTED)
+    assert not set(TOOLS_RENAMED) & set(TOOLS_NOT_PORTED)

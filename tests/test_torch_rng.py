@@ -4,6 +4,13 @@ Equal bits mean equal paths: the port, the CUDA kernel and the JAX
 reference trace the same path for the same (key, ray id, iteration), so
 images compare pixel by pixel. Tolerance: none, every word and float must
 match exactly.
+
+Path ids in [2**31, 2**32): the port holds them in int64, the JAX package
+in int32, where they wrap to negative numbers. Philox takes the same 32
+bits either way, so the port's draws and jitter equal JAX's at the
+int32-bitcast id; the camera pixel does not: JAX's wavefront takes it from
+the wrapped id (wavefront.py:43), 2**32 mod num_pix pixels away from the
+true one (ROADMAP C9). Ids at 2**32 raise: the counter word would repeat.
 """
 
 import numpy as np
@@ -17,6 +24,13 @@ from pathtrace_tpu.utils import rng as jrng  # noqa: E402
 from pathtrace_tpu_torch.utils import rng as trng  # noqa: E402
 
 SEEDS = [0, 5, 123, 2**32 + 17, 2**40 + 2**33 + 9]
+
+
+def _high_ids(n=4096, seed=0):
+    """uint32 ids in [2**31, 2**32), both ends included."""
+    ids = np.random.default_rng(seed).integers(2**31, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    ids[:4] = [2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1]
+    return ids
 
 
 def _ray_ids(n=4096, seed=0):
@@ -87,7 +101,60 @@ def test_randint_from_uniform_equal(n):
     np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_draws_past_2_31_equal_jax_at_bitcast_ids(seed):
+    """For ids in [2**31, 2**32) the port's int64 ids give JAX's draws and
+    jitter at the same bits as int32 (the ids the JAX engines hold)."""
+    ids = _high_ids(seed=seed + 20)
+    as_int32 = jnp.asarray(ids.view(np.int32))
+    assert int(np.asarray(as_int32).min()) < 0  # JAX's ids have wrapped
+    t_ids = torch.from_numpy(ids.astype(np.int64))
+    it = np.random.default_rng(seed).integers(0, 40, ids.size).astype(np.int32)
+    a = np.asarray(jrng.uniforms(jrng.make_key(seed), as_int32, jnp.asarray(it)))
+    b = trng.uniforms(trng.make_key(seed), t_ids, torch.from_numpy(it)).numpy()
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    a = np.asarray(jrng.pixel_jitter(jrng.make_key(seed), as_int32))
+    b = trng.pixel_jitter(trng.make_key(seed), t_ids).numpy()
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def test_jax_regen_wraps_past_2_31_and_the_port_does_not():
+    """JAX's _regen_rays on the int32 ids its engine holds past 2**31, at
+    6x6, where 2**32 mod 36 = 4: its pixel sits 4 pixels before the id's
+    true pixel, while the port aims at the true pixel with the same jitter."""
+    from pathtrace_tpu.integrator.wavefront import _regen_rays as jax_regen
+    from pathtrace_tpu.models import procedural as jproc
+    from pathtrace_tpu_torch.integrator.wavefront import _regen_rays as port_regen
+    from torch_port_helpers import port_camera
+
+    cam, num_pix = jproc.default_camera(6, 6), 36
+    jkey, tkey = jrng.make_key(3), trng.make_key(3)
+    ids = np.arange(2**31 - 40, 2**31 + 40, dtype=np.int64)  # crosses 2**31
+    wrapped = jnp.asarray(ids.astype(np.uint32).view(np.int32))  # JAX's int32 path ids
+    _, j_dirs, j_pix = jax_regen(cam, wrapped, jkey, num_pix)
+    true_pix, high = ids % num_pix, ids >= 2**31
+    shift = (true_pix - np.asarray(j_pix)) % num_pix
+    assert np.all(shift[high] == 2**32 % num_pix) and np.all(shift[~high] == 0)
+
+    ju = jrng.pixel_jitter(jkey, wrapped)
+    t_ids = torch.from_numpy(ids)
+    np.testing.assert_array_equal(np.asarray(ju).view(np.uint32),
+                                  trng.pixel_jitter(tkey, t_ids).numpy().view(np.uint32))
+    want = np.asarray(cam.ray_directions(jnp.asarray(true_pix % 6, jnp.float32),
+                                         jnp.asarray(true_pix // 6, jnp.float32),
+                                         ju[:, 0], ju[:, 1]))
+    _, p_dirs = port_regen(port_camera(cam), t_ids, tkey, num_pix)
+    assert np.abs(p_dirs.numpy() - want).max() < 1e-6
+    j_dirs = np.asarray(j_dirs)
+    assert np.abs(j_dirs[~high] - want[~high]).max() < 1e-6
+    assert np.abs(j_dirs[high] - want[high]).max(axis=1).min() > 1e-2  # every one misplaced
+
+
 def test_path_id_limit_raises():
-    trng.check_path_ids(256 * 256, 1024)  # 67M ids: fits int32
-    with pytest.raises(ValueError, match="2\\*\\*31"):
-        trng.check_path_ids(65536, 32768)
+    trng.check_path_ids(256 * 256, 1024)  # 67M ids
+    trng.check_path_ids(65536, 32768)  # 2**31 ids: past int32, below the counter word
+    trng.check_path_ids(1080 * 2400, 1024)  # a pass of the reference's job: 2.65e9 ids
+    with pytest.raises(ValueError, match="Philox counter word"):
+        trng.check_path_ids(65536, 65536)
+    with pytest.raises(ValueError, match="int32"):
+        trng.check_path_ids(65536, 32768, limit=trng.TAPE_ID_LIMIT)

@@ -6,7 +6,8 @@ are the plain version's ray count, the per-lane counts sum to it, there is
 one shadow ray per live hit and some but not all reach the light, the
 triangle-test count sees each of those rays once, the image is the plain
 version's, and regenerating paths in place keeps a warp at least as busy
-as running each path to its end (PERF.md, kernel B1).
+as running each path to its end (PERF.md, kernel B1). The least-time model
+beside the count (profile_main.bound, mt_pair_ops, b1_ops) by hand.
 """
 
 import pytest
@@ -28,6 +29,23 @@ def test_useful_share_by_hand():
     # a lane past the pool idles in both schedules
     nested, in_place = profile_main.useful_share(torch.tensor([2, 2, 2]), lanes=4, warp=4)
     assert nested == in_place == pytest.approx(6 / 8)
+
+
+def test_bound_model_by_hand():
+    assert profile_main.bound(profile_main.FP32_PEAK * 1e-3, 1.0) == (1.0, "operations")
+    assert profile_main.bound(1.0, profile_main.HBM_RATE * 2e-3) == (2.0, "bytes")
+    assert (profile_main.SHADE_OPS, profile_main.NEE_VISIBLE_OPS) == (465, 183)
+    # one triangle [v0 | e1 | e2] in the z = 0 plane; a ray through its
+    # inside needs all four stages, one through the plane beside it stops
+    # after stage 2 (u > det), one parallel to the plane after stage 1
+    table = torch.tensor([[0.0, 0, 0, 1, 0, 0, 0, 1, 0]])
+    org = torch.tensor([[0.2, 0.2, 1.0], [2.0, 0.2, 1.0], [0.2, 0.2, 1.0]])
+    dirn = torch.tensor([[0.0, 0, -1], [0.0, 0, -1], [1.0, 0, 0]])
+    assert profile_main.mt_pair_ops(table, org, dirn).tolist() == [44.0, 22.0, 14.0]
+    scene = procedural.cornell_box_scene(include_spheres=True)
+    need = {"mt_ops": 100.0, "rays": 3, "hits": 2, "visible": 1}
+    assert profile_main.b1_ops(scene, need) == (100 + 3 * scene.num_spheres * 28
+                                                + 2 * 465 + 183)
 
 
 @pytest.mark.parametrize("scene_name,nee,lanes", [
