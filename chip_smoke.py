@@ -105,6 +105,17 @@ benchmarks). Phases, one line each (or one per comparison):
      plain search (bit-equal); the five rows of
      tools/torch_card_cpu_agreement.py against the committed CPU goldens;
      the phase's seconds.
+  9. scaling (tools/torch_scaling_bench.py as a subprocess, under `torchrun
+     --nproc_per_node=1`: a NCCL group of one) at small depth: the main path
+     at 256x256 @ 64 spp, the mesh path at 64x64 @ 4 spp, the train step at
+     32x32 @ 8 spp, each row after its check pass (bit-equal to the
+     one-process call) with the kernel's launches in the timed run; B1, B2
+     and B3 against their plain versions on the rank's card (and, with more
+     than one card, from the launcher on every card); the six sharded entry
+     points against one process; the collectives' ms; the phase's seconds.
+     With more than one card the sweep goes up to their count; on one card
+     the N > 1 rows come from docs/torch_scaling_bench.json (a four-card
+     run of the tool).
 
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
@@ -986,6 +997,81 @@ def evidence_phase(smi: str) -> None:
     print(f"[8 done] phase 8 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+def scale_phase() -> None:
+    """Phase 9: the scaling sweep at small depth through its tool, as a
+    subprocess; fails on any failed check or a path that launched no
+    kernel."""
+    import torch
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    sizes = [n for n in (1, 2, 4) if n <= count]
+    if count > 1:
+        print(f"[9 scale] {count} cards: the sweep runs N = {sizes}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scale.json")
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                            "torch_scaling_bench.py"),
+                               "--smoke", "--sizes", ",".join(map(str, sizes)), "--json", out],
+                              cwd=REPO, stdout=subprocess.PIPE, text=True, timeout=900)
+        if proc.returncode != 0 or not os.path.exists(out):
+            fail(f"tools/torch_scaling_bench.py failed (exit {proc.returncode}):\n"
+                 f"{proc.stdout[-3000:]}")
+        with open(out) as f:
+            report = json.load(f)
+    if not report["device_guard"]:
+        print("[9 scale] one card: the launcher's kernels on cards other than the current one "
+              "need a second card (docs/torch_scaling_bench.json holds them on cuda:0-3)",
+              flush=True)
+    for g in report["device_guard"]:
+        if "error" in g:
+            fail(f"a kernel launch on {g['device']} failed: {g['error']}")
+        print(f"[9 scale] launcher, current device {g['current_device']}: on {g['device']} B1 "
+              f"{g['B1']['bit_equal']} ({g['B1']['launches']} launch), B2 "
+              f"{g['B2']['bit_equal']}, B3 {g['B3']['bit_equal']} bit-equal to plain", flush=True)
+    for run in report["runs"]:
+        checks = run["kernel_checks"]
+        eps = run["entry_points"]
+        print(f"[9 scale] N={run['n_devices']} ({run['backend']}, {', '.join(run['devices'])}): "
+              f"per-rank B1/B2/B3 bit-equal to plain: "
+              f"{[(c['B1']['bit_equal'], c['B2']['bit_equal'], c['B3']['bit_equal']) for c in checks]}; "
+              f"six entry points vs one process: "
+              f"{ {k: v['pass'] for k, v in eps.items() if isinstance(v, dict)} }; "
+              f"{run['wall_seconds']:.2f} s with start-up", flush=True)
+    for sweep in report["sweeps"]:
+        for row in sweep["rows"]:
+            launches = sum(c[sweep["kernel"]] for c in row["rank_launches"])
+            coll = row.get("collectives", {}).get("max_over_ranks", {})
+            print(f"[9 scale] {sweep['name']} {sweep['mode']} {row['camera'][0]}x"
+                  f"{row['camera'][1]}@{row['spp']}spp lanes {row['lanes']} N={row['n_devices']}: "
+                  f"{launches} {sweep['kernel']} launches, {row['seconds']:.4f} s, "
+                  f"{row['paths_per_sec'] / 1e6:.3f}M paths/s, "
+                  f"{row['rays_per_sec_per_chip'] / 1e6:.3f}M rays/s a card, efficiency "
+                  f"{row['efficiency_vs_1']:.4f}; check at {row['check']['spp']} spp bit-equal "
+                  f"{row['check']['bit_equal']}, rays {row['check']['rays_equal']}"
+                  + (f", grads max rel err {row['check']['grads_max_rel_err']:.3e}"
+                     if "grads_max_rel_err" in row["check"] else "") + "; collectives "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in coll.items()), flush=True)
+            if launches < 1:
+                fail(f"the {sweep['name']} sweep launched no {sweep['kernel']}")
+    if not report["pass"]:
+        fail("the scaling sweep failed a check (its report's pass is false)")
+    committed = os.path.join(REPO, "docs", "torch_scaling_bench.json")
+    if count == 1 and not os.path.exists(committed):
+        print("[9 scale] one card here, and no docs/torch_scaling_bench.json: N > 1 not "
+              "measured", flush=True)
+    elif count == 1:
+        with open(committed) as f:
+            cards = json.load(f)
+        for sweep in cards["sweeps"]:
+            effs = ", ".join(f"N={r['n_devices']} {r['efficiency_vs_1']:.4f}"
+                             for r in sweep["rows"] if r["n_devices"] > 1)
+            print(f"[9 scale] one card here: the N > 1 rows come from "
+                  f"docs/torch_scaling_bench.json ({cards['card']}, {cards['power_limit']}): "
+                  f"{sweep['name']} {sweep['mode']} efficiency_vs_1 {effs}", flush=True)
+    print(f"[9 done] phase 9 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1144,6 +1230,7 @@ def main() -> int:
     parity_phase(smi)
     shard_phase(smi, img.mean().item(), occ)
     evidence_phase(smi)
+    scale_phase()
 
     print(smi)
     print(json.dumps({"kernels": [{

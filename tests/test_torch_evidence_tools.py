@@ -14,6 +14,12 @@ sizes, and the committed card artifacts they write (docs/torch_*.json).
 - torch_gradcheck_oracle: two FD checks and the IOR forward/reverse check
   at 8x8 @ 2 spp.
 - torch_glass512_render, torch_mesh512_render: one tiny render each.
+- docs/torch_scaling_bench.json (tools/torch_scaling_bench.py, tested on
+  the CPU in test_torch_scaling.py) comes from a four-card run and a
+  four-card rerun of its train sweep merged into it: N = 1, 2, 4 in each
+  sweep, every bit_equal flag true, efficiency_vs_1 equal to its
+  definition, the reference job on four cards equal in rays to the
+  one-card job.
 - Each committed docs/torch_*.json comes from one run on the card: it
   passes, and names the card and its power limit (as
   tests/test_golden.py:83-95 and tests/test_grad.py:218-248 pin the TPU
@@ -24,6 +30,7 @@ import json
 import os
 import pathlib
 import re
+import statistics
 import sys
 
 import pytest
@@ -146,3 +153,79 @@ def test_tools_write_no_artifact_on_the_cpu(tmp_path, monkeypatch):
     assert reference.main(["--device", "cpu", "--out-dir", str(tmp_path)]) == 0
     after = {p.name: p.stat().st_mtime_ns for p in (REPO / "docs").glob("torch_*.json")}
     assert before == after and os.listdir(tmp_path)
+
+
+def _bit_equal_flags(node) -> list:
+    """Every `bit_equal` value anywhere in a report."""
+    if isinstance(node, dict):
+        return [v for k, v in node.items() if k == "bit_equal"] + [
+            f for v in node.values() for f in _bit_equal_flags(v)]
+    if isinstance(node, list):
+        return [f for v in node for f in _bit_equal_flags(v)]
+    return []
+
+
+def test_scaling_bench_artifact():
+    """The four-card runs of tools/torch_scaling_bench.py: the whole sweep,
+    and the train sweep again (`--only train --merge`), its rows in place of
+    the first run's, each row's entry point timed three times with a rank's
+    lanes // N in both entry point and body. N = 1, 2, 4 in each sweep,
+    every bit_equal flag true, efficiency_vs_1 equal to its definition,
+    each rank's kernels bit-equal to their plain versions on cuda:0-3 in
+    both runs, the reference job on four cards equal in rays to the
+    one-card job. Its verdict is false for one check, which this pins with
+    the measurements beside it: the train step's grads at N = 4 against the
+    one-process call (bar 1e-5), where image and rays are exact, the N shard
+    bodies summed in one process equal the all-reduced grads within the
+    bar, and the one-process step moves as far from itself when only its
+    replay chunking changes (float32 summation order over 262,144 paths)."""
+    with open(REPO / "docs" / "torch_scaling_bench.json") as f:
+        r = json.load(f)
+    assert r["card"].startswith("NVIDIA") and r["device"] == "cuda:0"
+    assert re.fullmatch(r"\d+(\.\d+)? W", r["power_limit"]), r["power_limit"]
+    assert len(r["nvidia_smi"]) == 4 and all(line.startswith("NVIDIA") for line in r["nvidia_smi"])
+    assert [s["name"] for s in r["sweeps"]] == ["main", "reference", "mesh", "train"]
+    flags = _bit_equal_flags(r)
+    assert len(flags) > 40 and all(f is True for f in flags)
+    failing = []
+    for s in r["sweeps"]:
+        rows = s["rows"]
+        assert [row["n_devices"] for row in rows] == [1, 2, 4]
+        base = rows[0]["rays"] / rows[0]["seconds"]
+        for row in rows:
+            per_chip = row["rays"] / row["seconds"] / row["n_devices"]
+            assert row["rays_per_sec_per_chip"] == pytest.approx(per_chip, rel=1e-12)
+            assert row["efficiency_vs_1"] == pytest.approx(per_chip / base, rel=1e-12)
+            assert all(c[s["kernel"]] > 0 for c in row["rank_launches"])
+            check = row["check"]
+            assert check["bit_equal"] and check["rays_equal"]
+            if not check["pass"]:
+                failing.append((s["name"], row["n_devices"], check))
+    assert [f[:2] for f in failing] == [("train", 4)] and r["pass"] is False
+    check = failing[0][2]
+    assert max(check["shard_sum_rel_err"].values()) <= r["grad_rtol"]
+    assert r["grad_rtol"] < check["grads_max_rel_err"] <= max(check["reorder_rel_err"].values())
+    (rerun,) = r["merged_calls"]
+    assert rerun["ran"] == ["train"] and len(rerun["nvidia_smi"]) == 4
+    train = next(s for s in r["sweeps"] if s["name"] == "train")
+    assert train["call"] == "merged_calls[0]"
+    for row in train["rows"]:
+        assert row["lanes"] == train["lanes"] * row["n_devices"]  # in all; a rank's: LANES
+        assert len(row["repeat_seconds"]) == 3
+        assert row["seconds"] == statistics.median(row["repeat_seconds"])
+    for call, six in ((r, True), (rerun, False)):
+        four = next(run for run in call["runs"] if run["n_devices"] == 4)
+        assert four["backend"] == "nccl" and four["devices"] == [f"cuda:{k}" for k in range(4)]
+        assert all(k["pass"] for k in four["kernel_checks"])
+        if six:
+            assert four["entry_points"]["pass"]
+            assert four["entry_points"]["indexless_mesh"]["mesh_device"] == "cuda"
+        else:  # not asked again
+            assert four["entry_points"] is None
+        assert [g["device"] for g in call["device_guard"]] == [f"cuda:{k}" for k in range(4)]
+        assert all(g["pass"] and g["current_device"] == 0 for g in call["device_guard"])
+    job = r["job"]
+    assert job["n_devices"] == 4 and (job["passes"], job["spp"]) == (8, 1024)
+    assert job["rank_b1_launches"] == [8, 8, 8, 8] and job["against_one_card"]["pass"]
+    with open(REPO / "docs" / "torch_reference_frame.json") as f:
+        assert job["rays"] == json.load(f)["rays"]

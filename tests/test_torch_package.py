@@ -278,8 +278,6 @@ _TPU_PROFILE = ("a jax.profiler trace of the JAX package on the TPU; the port's 
                 "profile_main.py traces the card with torch.profiler")
 _MOSAIC = "probes which shape casts Mosaic (the TPU kernel compiler) accepts"
 TOOLS_NOT_PORTED = {
-    "scaling_bench.py": "weak and strong scaling over several chips; one card shows nothing "
-                        "(the next tool to port, once a machine has more than one card)",
     "tpu_profile.py": _TPU_PROFILE,
     "tpu_profile_fused.py": _TPU_PROFILE,
     "tpu_profile_mesh.py": _TPU_PROFILE,

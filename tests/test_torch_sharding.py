@@ -18,10 +18,10 @@ JAX package and against the whole render.
 - C5: the wavetape step's grads equal the replay step's at spp = 4, rtol
   1e-4 (per-path sums taken in another order: chunks sorted by length).
 - Two processes under gloo (tools/torch_multihost_worker.py, file://
-  rendezvous): the sharded wavefront render and wavetape step at world
-  size 2 equal world size 1 in this process: image bit for bit, grads at
-  rtol 1e-5. distributed.initialize() is a no-op alone and joins the group
-  that torchrun's variables describe.
+  rendezvous): the six sharded entry points at world size 2 equal world
+  size 1 in this process: images bit for bit, ray counts exactly, losses
+  and grads at rtol 1e-5. distributed.initialize() is a no-op alone and
+  joins the group that torchrun's variables describe.
 """
 
 import os
@@ -272,6 +272,10 @@ def test_two_processes_gloo_equal_one(tmp_path):
         if key.startswith(("tri.", "sph.")):
             scale = max(float(np.abs(ref[key]).max()), 1e-12)
             assert float(np.abs(got[key] - ref[key]).max()) <= 1e-5 * scale, key
+    # all six entry points: every image, count, loss and grad
+    assert {k for k in got.files if k not in ("process_count", "global_devices")} == set(ref)
+    verdict = worker.compare(got, ref)
+    assert verdict["pass"], verdict
 
 
 def test_initialize_from_the_torchrun_environment(tmp_path):
