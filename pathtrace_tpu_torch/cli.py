@@ -3,6 +3,7 @@
 
     python -m pathtrace_tpu_torch.cli render --preset cornell64 --engine fused --out out.png
     python -m pathtrace_tpu_torch.cli render --passes 4 --checkpoint ck.npz --resume
+    python -m pathtrace_tpu_torch.cli render --engine fused --trace prof
     python -m pathtrace_tpu_torch.cli grad-check --preset cornell64 --width 16 --height 16 --spp 4
     python -m pathtrace_tpu_torch.cli bench --width 256 --height 256 --spp 1024
 
@@ -32,7 +33,7 @@ def cmd_render(args) -> int:
     from pathtrace_tpu_torch.models.presets import build_preset_scene, get_preset
     from pathtrace_tpu_torch.ops.cuda.bounce_kernel import (auto_fused_config,
                                                             render_wavefront_fused)
-    from pathtrace_tpu_torch.utils import rng
+    from pathtrace_tpu_torch.utils import profiling, rng
     from pathtrace_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -63,28 +64,29 @@ def cmd_render(args) -> int:
             print(f"[resume] at pass {start_pass}", file=sys.stderr)
 
     key = rng.make_key(args.seed)
-    for p in range(start_pass, passes):
-        t0 = time.perf_counter()
-        pass_key = rng.iter_key(key, 1000 + p)
-        if args.engine == "fused":
-            pass_img, _ = render_wavefront_fused(
-                scene, camera, spp_per_pass, pass_key, cfg,
-                lanes=auto_fused_config(w * h), chunk_spp=min(spp_per_pass, 256),
-                device=dev)
-        elif args.engine == "wavefront":
-            pass_img, _ = render_wavefront_chunked(scene, camera, spp_per_pass,
-                                                   pass_key, cfg, device=dev)
-        else:
-            pass_img = render(scene, camera, spp_per_pass, pass_key, cfg, device=dev)
-        accum = accum + pass_img
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        print(f"[pass {p}] {spp_per_pass}spp in {dt:.2f}s", file=sys.stderr)
-        if args.out:
-            imageio.write_png(args.out, accum / (p + 1))
-        if args.checkpoint:
-            ckpt.save_state(args.checkpoint, accum, p + 1, args.seed, spp_per_pass)
+    with profiling.trace(args.trace or None):
+        for p in range(start_pass, passes):
+            t0 = time.perf_counter()
+            pass_key = rng.iter_key(key, 1000 + p)
+            if args.engine == "fused":
+                pass_img, _ = render_wavefront_fused(
+                    scene, camera, spp_per_pass, pass_key, cfg,
+                    lanes=auto_fused_config(w * h), chunk_spp=min(spp_per_pass, 256),
+                    device=dev)
+            elif args.engine == "wavefront":
+                pass_img, _ = render_wavefront_chunked(scene, camera, spp_per_pass,
+                                                       pass_key, cfg, device=dev)
+            else:
+                pass_img = render(scene, camera, spp_per_pass, pass_key, cfg, device=dev)
+            accum = accum + pass_img
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            print(f"[pass {p}] {spp_per_pass}spp in {dt:.2f}s", file=sys.stderr)
+            if args.out:
+                imageio.write_png(args.out, accum / (p + 1))
+            if args.checkpoint:
+                ckpt.save_state(args.checkpoint, accum, p + 1, args.seed, spp_per_pass)
     if args.out_npy:
         imageio.write_npy(args.out_npy, accum / passes)
     print(json.dumps({"passes": passes, "spp": spp_per_pass * passes,
@@ -190,6 +192,9 @@ def main(argv=None) -> int:
                     help="disable next-event estimation (README.md:56-58 A/B)")
     pr.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
+    pr.add_argument("--trace", default="", metavar="DIR",
+                    help="profile the passes into DIR/trace.json: torch.profiler's Chrome "
+                         "trace with the port's spans (utils/profiling.py)")
     pr.set_defaults(fn=cmd_render)
 
     pg = sub.add_parser("grad-check", help="autograd vs the FD oracle")

@@ -34,6 +34,7 @@ from pathtrace_tpu_torch.integrator.wavefront import _make_to_global, _regen_ray
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
+from pathtrace_tpu_torch.utils.profiling import span
 
 _HIT_BIT = 1 << 30
 _SPH_BIT = 1 << 29
@@ -155,34 +156,43 @@ def wavetape_grads_core(scene: Scene, camera: Camera, spp: int, base_key,
     if total % chunk:
         raise ValueError(f"chunk={chunk} must divide the {total} paths")
 
-    records, rec_film = record_paths_wavefront(
-        scene, camera, spp, base_key, cfg, lanes, pix_offset=pix_offset,
-        num_pix_local=num_pix_local, search=search)
+    # the sweep ends in its host reads, so the device's sweep is done when
+    # train.record closes
+    with span("train.record"):
+        records, rec_film = record_paths_wavefront(
+            scene, camera, spp, base_key, cfg, lanes, pix_offset=pix_offset,
+            num_pix_local=num_pix_local, search=search)
     if ct_flat is None:
         ct_flat = ct_fn(rec_film)
 
-    # length-sorted chunks: each replays as many bounces as its last path has
-    lens = ((records & _WRT_BIT) != 0).sum(dim=0)
-    order = torch.argsort(lens, stable=True)
-    depths = lens[order].reshape(-1, chunk)[:, -1].tolist()
-    rec_rows = records.t()
+    with span("train.replay"):
+        # length-sorted chunks: each replays as many bounces as its last path has
+        with span("train.sort"):
+            lens = ((records & _WRT_BIT) != 0).sum(dim=0)
+            order = torch.argsort(lens, stable=True)
+            depths = lens[order].reshape(-1, chunk)[:, -1].tolist()
+        rec_rows = records.t()
 
-    tri, sph = leaf_materials(scene.mat), leaf_materials(scene.spheres.mat)
-    live = with_materials(scene, tri, sph)
-    g_tri = g_sph = None
-    # each path's radiance at its own slot (unique indices), summed over the
-    # samples at the end: a fixed order, where index_add_'s atomics would
-    # reorder a pixel's sums from run to run on CUDA
-    path_rad = torch.zeros((total, 3), device=rec_film.device)
-    for c, depth in enumerate(depths):
-        ids = order[c * chunk:(c + 1) * chunk]
-        org, dirs, lpix, gids = _chunk_rays(camera, ids, base_key, pix_offset=pix_offset,
-                                            num_pix_local=npl)
-        rad = replay_chunk(live, rec_rows[ids, :depth].t(), org, dirs, gids, base_key, cfg)
-        gt, gs = material_grad((rad * ct_flat[lpix]).sum(), tri, sph)
-        g_tri, g_sph = (gt, gs) if g_tri is None else (add_materials(g_tri, gt),
-                                                       add_materials(g_sph, gs))
-        path_rad[ids] = rad.detach()
+        tri, sph = leaf_materials(scene.mat), leaf_materials(scene.spheres.mat)
+        live = with_materials(scene, tri, sph)
+        g_tri = g_sph = None
+        # each path's radiance at its own slot (unique indices), summed over
+        # the samples at the end: a fixed order, where index_add_'s atomics
+        # would reorder a pixel's sums from run to run on CUDA
+        path_rad = torch.zeros((total, 3), device=rec_film.device)
+        for c, depth in enumerate(depths):
+            with span("replay.chunk", depth=depth, paths=chunk):
+                ids = order[c * chunk:(c + 1) * chunk]
+                org, dirs, lpix, gids = _chunk_rays(camera, ids, base_key,
+                                                    pix_offset=pix_offset, num_pix_local=npl)
+                with span("replay.forward"):
+                    rad = replay_chunk(live, rec_rows[ids, :depth].t(), org, dirs, gids,
+                                       base_key, cfg)
+                with span("replay.backward"):
+                    gt, gs = material_grad((rad * ct_flat[lpix]).sum(), tri, sph)
+                g_tri, g_sph = (gt, gs) if g_tri is None else (add_materials(g_tri, gt),
+                                                               add_materials(g_sph, gs))
+                path_rad[ids] = rad.detach()
     return g_tri, g_sph, path_rad.reshape(spp, npl, 3).sum(dim=0) / spp, rec_film
 
 

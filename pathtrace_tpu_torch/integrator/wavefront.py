@@ -38,6 +38,7 @@ from pathtrace_tpu_torch.integrator.megakernel import make_bounce_fn
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
+from pathtrace_tpu_torch.utils.profiling import span
 
 
 def check_lanes(lanes: int, num_pix: int) -> int:
@@ -86,7 +87,10 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     megakernel.make_bounce_fn. on_iteration(ray_ids, lane_iter, alive), if
     given, runs after each bounce with the lanes' state before it, in local
     path ids (the gradient recorder commits its tape there,
-    diff/wavetape.py).
+    diff/wavetape.py). Each bounce iteration is one wavefront.iteration
+    span, holding the iteration's one host read (wavefront.sync) of
+    whether a lane is still alive; the read before the first iteration
+    lies outside them.
 
     With num_pix_local set, the pool is the pixel slice [pix_offset,
     pix_offset + num_pix_local) of the camera's image and the image is the
@@ -124,51 +128,62 @@ def _run_wavefront(scene: Scene, camera: Camera, spp: int, base_key,
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     zero3 = torch.zeros_like(radiance)
 
-    while bool(alive.any()):
-        (org, dirn, radiance, weight, depth, refract_cnt, refracted,
-         alive_next, traced) = bounce(org, dirn, radiance, weight, depth,
-                                      refract_cnt, refracted, alive,
-                                      to_global(ray_ids), lane_iter)
-        rays = rays + traced
-        if on_iteration is not None:
-            on_iteration(ray_ids, lane_iter, alive)
+    going = bool(alive.any())
+    it = 0
+    while going:
+        with span("wavefront.iteration", index=it):
+            with span("wavefront.bounce"):
+                (org, dirn, radiance, weight, depth, refract_cnt, refracted,
+                 alive_next, traced) = bounce(org, dirn, radiance, weight, depth,
+                                              refract_cnt, refracted, alive,
+                                              to_global(ray_ids), lane_iter)
+                rays = rays + traced
+            with span("wavefront.commit"):
+                if on_iteration is not None:
+                    on_iteration(ray_ids, lane_iter, alive)
 
-        died = alive & ~alive_next
-        contrib = torch.where(died[:, None], radiance, zero3)
-        if not static:
-            film.index_add_(0, pixel, contrib)
-            # pool regeneration: the dead lanes take the next unstarted ids
-            # in lane order
-            died_i = died.to(torch.int64)
-            new_local = next_path + torch.cumsum(died_i, 0) - 1
-            regen = died & (new_local < total_paths)
-            new_safe = torch.where(regen, base_path + new_local, torch.zeros_like(new_local))
-            pixel = torch.where(regen, new_safe % num_pix, pixel)
-            next_path = next_path + died_i.sum()
-        else:
-            # commit: lane i's k-th path lands in film[k % K, i], which is
-            # pixel (i + (k % K) * lanes) % num_pix
-            if k_pix == 1:
-                film[0] += contrib
-            else:
-                kmod = ((ray_ids - base_path) // lanes) % k_pix
-                film.view(-1, 3).index_add_(0, kmod * lanes + lane, contrib)
-            # strided regeneration: lane i's next path id is ray_id + lanes
-            new_idx = ray_ids + lanes
-            regen = died & (new_idx - base_path < total_paths)
-            new_safe = torch.where(regen, new_idx, torch.zeros_like(new_idx))
-        r_org, r_dir = _regen_rays(camera, to_global(new_safe), base_key, npt)
-        sel = regen[:, None]
-        org = torch.where(sel, r_org, org)
-        dirn = torch.where(sel, r_dir, dirn)
-        radiance = torch.where(sel, zero3, radiance)
-        weight = torch.where(sel, torch.ones_like(weight), weight)
-        depth = torch.where(regen, 0, depth)
-        refract_cnt = torch.where(regen, 0, refract_cnt)
-        refracted = refracted & ~regen
-        alive = alive_next | regen
-        ray_ids = torch.where(regen, new_safe, ray_ids)
-        lane_iter = torch.where(regen, 0, lane_iter + 1)
+                died = alive & ~alive_next
+                contrib = torch.where(died[:, None], radiance, zero3)
+                if not static:
+                    film.index_add_(0, pixel, contrib)
+                elif k_pix == 1:
+                    # commit: lane i's k-th path lands in film[k % K, i], which
+                    # is pixel (i + (k % K) * lanes) % num_pix
+                    film[0] += contrib
+                else:
+                    kmod = ((ray_ids - base_path) // lanes) % k_pix
+                    film.view(-1, 3).index_add_(0, kmod * lanes + lane, contrib)
+            with span("wavefront.regen"):
+                if not static:
+                    # pool regeneration: the dead lanes take the next
+                    # unstarted ids in lane order
+                    died_i = died.to(torch.int64)
+                    new_local = next_path + torch.cumsum(died_i, 0) - 1
+                    regen = died & (new_local < total_paths)
+                    new_safe = torch.where(regen, base_path + new_local,
+                                           torch.zeros_like(new_local))
+                    pixel = torch.where(regen, new_safe % num_pix, pixel)
+                    next_path = next_path + died_i.sum()
+                else:
+                    # strided regeneration: lane i's next path id is ray_id + lanes
+                    new_idx = ray_ids + lanes
+                    regen = died & (new_idx - base_path < total_paths)
+                    new_safe = torch.where(regen, new_idx, torch.zeros_like(new_idx))
+                r_org, r_dir = _regen_rays(camera, to_global(new_safe), base_key, npt)
+                sel = regen[:, None]
+                org = torch.where(sel, r_org, org)
+                dirn = torch.where(sel, r_dir, dirn)
+                radiance = torch.where(sel, zero3, radiance)
+                weight = torch.where(sel, torch.ones_like(weight), weight)
+                depth = torch.where(regen, 0, depth)
+                refract_cnt = torch.where(regen, 0, refract_cnt)
+                refracted = refracted & ~regen
+                alive = alive_next | regen
+                ray_ids = torch.where(regen, new_safe, ray_ids)
+                lane_iter = torch.where(regen, 0, lane_iter + 1)
+            with span("wavefront.sync"):
+                going = bool(alive.any())
+        it += 1
 
     # static: film[k, i] belongs to pixel (i + k*lanes) % num_pix
     if not static or num_pix >= lanes:
@@ -215,8 +230,9 @@ def accumulate_chunks(run_chunk, camera: Camera, spp: int, chunk_spp: int, dev,
     done = 0
     while done < spp:
         cur = min(chunk_spp, spp - done)
-        img, n = run_chunk(cur, done)
-        film = film + img * cur
+        with span("render.chunk"):
+            img, n = run_chunk(cur, done)
+            film = film + img * cur
         rays += n
         done += cur
     return film / spp, rays
@@ -229,7 +245,8 @@ def render_wavefront_chunked(scene: Scene, camera: Camera, spp: int, base_key,
     """render_wavefront_stats in chunks of chunk_spp samples
     (accumulate_chunks)."""
     dev = resolve_device(device)
-    scene = scene.to(dev)
-    return accumulate_chunks(
-        lambda n, offset: _run_wavefront(scene, camera, n, base_key, cfg, lanes, offset),
-        camera, spp, chunk_spp, dev)
+    with span("wavefront.render"):
+        scene = scene.to(dev)
+        return accumulate_chunks(
+            lambda n, offset: _run_wavefront(scene, camera, n, base_key, cfg, lanes, offset),
+            camera, spp, chunk_spp, dev)

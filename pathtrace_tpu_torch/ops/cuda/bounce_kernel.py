@@ -28,6 +28,7 @@ from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.ops.cuda import build
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
+from pathtrace_tpu_torch.utils.profiling import span
 
 # Kernel launches made by `launch` in this process. chip_smoke.py resets it
 # before driving the main path and reads it after.
@@ -219,9 +220,10 @@ def launch(pack: FusedPack, params: PtParams):
         film = torch.empty((params.k_pix * params.lanes, 3), device=dev)
         rays = torch.empty((params.lanes,), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = render_fn(ctypes.byref(params), pack.tri_geo.data_ptr(),
-                        pack.tri_attr.data_ptr(), pack.spheres.data_ptr(),
-                        pack.lights.data_ptr(), film.data_ptr(), rays.data_ptr(), stream)
+        with span("b1.launch", lanes=params.lanes, spp=params.total_paths // params.num_pix):
+            err = render_fn(ctypes.byref(params), pack.tri_geo.data_ptr(),
+                            pack.tri_attr.data_ptr(), pack.spheres.data_ptr(),
+                            pack.lights.data_ptr(), film.data_ptr(), rays.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -255,9 +257,11 @@ def fused_chunk(pack: FusedPack, camera: Camera, spp: int, sample_offset: int, b
     else:
         film_pix = film.reshape(lanes // num_pix, num_pix, 3).sum(dim=0)
     if num_pix_local is not None:
-        return film_pix / spp, int(rays.sum())
-    img = film_pix.reshape(camera.height, camera.width, 3) / spp
-    return img, int(rays.sum())
+        img = film_pix / spp
+    else:
+        img = film_pix.reshape(camera.height, camera.width, 3) / spp
+    with span("fused.read_rays"):
+        return img, int(rays.sum())
 
 
 def auto_fused_config(num_pix: int, target_lanes: int = 65536) -> int:
@@ -296,18 +300,20 @@ def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
     npt = camera.width * camera.height
     check_lanes(lanes, npt if num_pix_local is None else num_pix_local)
     rng.check_path_ids(npt, spp, sample_offset)
-    scene = scene.to(dev)
-    sliced = dict(pix_offset=pix_offset, num_pix_local=num_pix_local)
-    if dev.type == "cpu":
-        def run_chunk(n, offset):
-            return _run_wavefront(scene, camera, n, base_key, cfg, lanes,
-                                  sample_offset + offset, **sliced)
-    elif dev.type == "cuda":
-        pack = build_fused_pack(scene)
+    with span("fused.render"):
+        scene = scene.to(dev)
+        sliced = dict(pix_offset=pix_offset, num_pix_local=num_pix_local)
+        if dev.type == "cpu":
+            def run_chunk(n, offset):
+                return _run_wavefront(scene, camera, n, base_key, cfg, lanes,
+                                      sample_offset + offset, **sliced)
+        elif dev.type == "cuda":
+            with span("fused.pack"):
+                pack = build_fused_pack(scene)
 
-        def run_chunk(n, offset):
-            return fused_chunk(pack, camera, n, sample_offset + offset, base_key, cfg, lanes,
-                               launch_events=launch_events, **sliced)
-    else:
-        raise ValueError(f"no fused engine for device {dev}")
-    return accumulate_chunks(run_chunk, camera, spp, chunk_spp, dev, num_pix_local)
+            def run_chunk(n, offset):
+                return fused_chunk(pack, camera, n, sample_offset + offset, base_key, cfg,
+                                   lanes, launch_events=launch_events, **sliced)
+        else:
+            raise ValueError(f"no fused engine for device {dev}")
+        return accumulate_chunks(run_chunk, camera, spp, chunk_spp, dev, num_pix_local)

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from pathtrace_tpu_torch.ops.cuda import build
+from pathtrace_tpu_torch.utils.profiling import span
 
 # Kernel launches made by `launch` in this process. chip_smoke.py resets it
 # before driving the main path and reads it after.
@@ -116,7 +117,8 @@ def launch(clusters, org, dirn, t_min, t_max, mode: str = "closest"):
         ptrs = [x.data_ptr() for x in (clusters.bmin, clusters.bmax, clusters.prim_start,
                                        clusters.prim_count, clusters.members, clusters.dup_map,
                                        org, dirn, t_min, t_max, hit, t, u, v, pid)]
-        err = fn(r, m, int(mode == "closest"), ptrs, stream)
+        with span("b2.launch"):
+            err = fn(r, m, int(mode == "closest"), ptrs, stream)
     if err != 0:
         raise RuntimeError(f"KD raycast kernel launch failed: cudaError {err}")
     LAUNCHES += 1

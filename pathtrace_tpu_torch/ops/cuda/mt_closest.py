@@ -21,6 +21,7 @@ import functools
 import torch
 
 from pathtrace_tpu_torch.ops.cuda import build
+from pathtrace_tpu_torch.utils.profiling import span
 
 # Kernel launches made by `launch` in this process. chip_smoke.py resets it
 # before driving a path and reads it after.
@@ -91,7 +92,8 @@ def launch(table, org, dirn, t_min, t_max, mode: str = "closest"):
         fn = _closest_fn()
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [x.data_ptr() for x in (table, org, dirn, t_min, t_max, hit, t, idx, u, v)]
-        err = fn(r, n, int(mode == "closest"), *ptrs, stream)
+        with span("b3.launch"):
+            err = fn(r, n, int(mode == "closest"), *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"all-triangles kernel launch failed: cudaError {err}")
     LAUNCHES += 1

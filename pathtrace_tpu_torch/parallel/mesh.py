@@ -44,6 +44,7 @@ from pathtrace_tpu_torch.models.scene import Material, Scene
 from pathtrace_tpu_torch.ops.cuda.bounce_kernel import render_wavefront_fused
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
+from pathtrace_tpu_torch.utils.profiling import span
 
 RAY_AXIS = "rays"
 
@@ -213,13 +214,14 @@ def train_step_wavetape_shard(scene: Scene, camera: Camera, target, spp: int, ba
     2 (film - target) / spp from the recorded film, then the chunked replay
     backwards (diff/wavetape.py). loss = sum((image - target)^2) over the
     replay image."""
-    pix0, npl = pixel_slice(camera, shard, n_shards)
-    tgt = _target_slice(target, camera, pix0, npl, scene.device)
-    g_tri, g_sph, film, _ = wavetape_grads_core(
-        scene, camera, spp, base_key, cfg, None, lanes, chunk,
-        ct_fn=lambda rec_film: 2.0 * (rec_film - tgt) / float(spp), pix_offset=pix0,
-        num_pix_local=npl, search=search)
-    return ((film - tgt) ** 2).sum(), (g_tri, g_sph), film
+    with span("train.step"):
+        pix0, npl = pixel_slice(camera, shard, n_shards)
+        tgt = _target_slice(target, camera, pix0, npl, scene.device)
+        g_tri, g_sph, film, _ = wavetape_grads_core(
+            scene, camera, spp, base_key, cfg, None, lanes, chunk,
+            ct_fn=lambda rec_film: 2.0 * (rec_film - tgt) / float(spp), pix_offset=pix0,
+            num_pix_local=npl, search=search)
+        return ((film - tgt) ** 2).sum(), (g_tri, g_sph), film
 
 
 # ---------------------------------------------------------------------------

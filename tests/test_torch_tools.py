@@ -4,8 +4,7 @@ and `cli bench`, on the CPU.
 - check_image rejects NaN, inf and negative values and passes a render;
   checked_render renders and checks; debug_nans turns autograd's anomaly
   mode on for its block only, where a NaN backward raises.
-- Timer times scopes (synchronizing the device of its tensors), RayMeter
-  sums counts into rates, trace writes a Chrome trace.
+- trace writes a Chrome trace (its spans: tests/test_torch_spans.py).
 - `cli bench` sets BENCH_W, BENCH_H and BENCH_SPP and calls bench.main
   (monkeypatched: the bench needs a card).
 """
@@ -49,21 +48,6 @@ def test_debug_nans_scopes_anomaly_mode():
         with pytest.raises(RuntimeError, match="nan"):
             torch.sqrt(x - 1.0).sum().backward()
     assert not torch.is_anomaly_enabled()
-
-
-def test_timer_and_ray_meter():
-    timer = profiling.Timer()
-    for _ in range(2):
-        with timer.scope("square", sync_on={"x": [torch.ones(3)]}):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert len(timer.laps["square"]) == 2 and timer.mean("square") > 0
-    assert timer.mean("missing") == 0.0
-    assert "square: n=2" in timer.report()
-    meter = profiling.RayMeter()
-    meter.add(100, 350, 0.5)
-    meter.add(100, 250, 0.5)
-    assert meter.summary() == {"paths_per_sec": 200.0, "rays_per_sec": 600.0,
-                               "rays_per_path": 3.0, "seconds": 1.0}
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
