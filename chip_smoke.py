@@ -54,15 +54,26 @@ benchmarks). Phases, one line each (or one per comparison):
      64 spp (bench.train_sweep_searches): each launch bit-equal to the plain
      version, the sweep's kernel ms (mean of 20 sweeps), its bound and the
      kernel over the bound. Then one train step at 128x128 @ 64 spp after a
-     warm-up (launch count, seconds, paths/s, finite loss and grads); the
+     warm-up (launch counts of B3 and of the material gathers and
+     backwards, seconds, paths/s, finite loss and grads), and one more
+     under torch.profiler: its device time by kernel, the material kernels'
+     share, and no PyTorch index backward left; the
      step at 4 spp through the kernel and through the plain search (loss and
      grads within 1e-5 relative per field); wavetape grads against the
      lockstep scan-AD grads at 24x24 @ 8 spp (per field, max error over the
      field's max below 1e-3); then `cli grad-check` at 16x16 @ 4 spp as a
-     subprocess. A scene of spheres alone (procedural.sphere_only_scene: no
-     triangle, no light) at 64x64 @ 8 spp through the wavefront on the
-     all-triangles kernel and through the fused kernel, each bit-equal to
-     the plain wavefront (image and rays), finite, mean above 0. Last, `cli
+     subprocess. The material gather and its gradient (csrc/mat_gather.cu)
+     at the train step's shape, 262,144 lanes of a taped bounce against the
+     38-row triangle and 2-row sphere tables, 12 floats: forward bit-equal
+     to plain indexing, the backward bit-identical over two runs and within
+     1e-4 of the terms' magnitude of PyTorch's index backward (the largest
+     absolute difference of either is max_abs_err); the kernels'
+     event and device ms, the plain version's and PyTorch's index backward's
+     (library_ms), the bound (bytes at 3.35 TB/s). A scene of spheres
+     alone (procedural.sphere_only_scene: no triangle, no light) at 64x64
+     @ 8 spp through the wavefront on the all-triangles kernel and through
+     the fused kernel, each bit-equal to the plain wavefront (image and
+     rays), finite, mean above 0. Last, `cli
      render` as a subprocess, the same render two ways, --out-npy bit for
      bit: 4 passes straight, and 2 passes with --checkpoint then --resume
      --passes 4, on --engine fused and --engine wavefront; and one --no-nee
@@ -98,8 +109,9 @@ benchmarks). Phases, one line each (or one per comparison):
      past 2**32 refused before any launch; mesh gradients, the wavetape
      against scan-AD on blob82k with KD cells of 1024 at 32x32 @ 4 spp
      through B2 (per field below 1e-3, the primals within 1e-3, B2
-     launches), and both again through the plain KD search (primals
-     bit-equal, grads within 1e-5); forward mode against reverse mode on a
+     launches; the material backward over 641 tiles), and both again
+     through the plain KD search (primals bit-equal, grads within 1e-5);
+     forward mode against reverse mode on a
      random tangent of the six material fields at 16x16 @ 4 spp through B3
      (below 1e-3, B3 launches), and the forward mode again through the
      plain search (bit-equal); the five rows of
@@ -170,6 +182,25 @@ def timed_launches(fn, n: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 20) -> dict:
+    """{kernel name: device milliseconds a call of fn()}, under
+    torch.profiler over n calls after one warm-up call: the device's own
+    time, which the event times above exceed wherever the host launches
+    more slowly than the card runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def timed(fn):
@@ -452,6 +483,7 @@ def train_phase(smi: str) -> dict:
     from pathtrace_tpu_torch.models import procedural
     from pathtrace_tpu_torch.ops import kd_raycast as kd
     from pathtrace_tpu_torch.ops import mt_closest as mt
+    from pathtrace_tpu_torch.ops.cuda import mat_gather as mg_kernel
     from pathtrace_tpu_torch.ops.cuda import mt_closest as mt_kernel
     from pathtrace_tpu_torch.utils import rng
 
@@ -536,16 +568,34 @@ def train_phase(smi: str) -> dict:
     held = torch.cuda.memory_allocated()  # phase 6a's ray sets, the scenes
     spp, paths = 64, 128 * 128 * 64
     mt_kernel.LAUNCHES = 0
+    mg_kernel.GATHER_LAUNCHES = mg_kernel.SCATTER_LAUNCHES = 0
     (loss, grads, img), ms = timed(lambda: step(spp))
     launches = mt_kernel.LAUNCHES
+    mat_launches = {"gather": mg_kernel.GATHER_LAUNCHES, "scatter": mg_kernel.SCATTER_LAUNCHES}
     print(f"[6 train] train step cornell+spheres 128x128@{spp}spp lanes {bench.TRAIN_LANES} "
-          f"chunk {bench.TRAIN_CHUNK}: {launches} all-triangles kernel launches, "
-          f"{ms / 1e3:.4f} s, {paths / ms * 1e3 / 1e6:.4f}M paths/s, loss {loss.item():.6f}, "
-          f"peak memory {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above the "
+          f"chunk {bench.TRAIN_CHUNK}: {launches} all-triangles kernel launches, material "
+          f"gathers {mat_launches['gather']}, backwards {mat_launches['scatter']}, "
+          f"{ms / 1e3:.4f} s, {paths / ms * 1e3 / 1e6:.4f}M paths/s, "
+          f"loss {loss.item():.6f}, peak memory "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB above the "
           f"{held / 1e9:.3f} GB held before the step, on {smi}", flush=True)
     if launches < 1:
         fail("the training path launched no all-triangles kernel")
+    if mat_launches["gather"] < 1 or mat_launches["scatter"] < 1:
+        fail("the training path did not gather and sum its materials through the material "
+             "kernels")
     bench.check_train_output(loss, grads, img)
+
+    # the step's device time by kernel: no index backward of PyTorch's left
+    ops = device_ms(lambda: step(spp), n=1)
+    mat_ms = sum(v for k, v in ops.items() if "pt::mat_" in k)
+    index_bwd = sorted(k for k in ops if "indexing_backward" in k)
+    print(f"[6 train] the step's device time: busy {sum(ops.values()):.1f} ms of {ms:.1f} ms, "
+          f"material kernels {mat_ms:.3f} ms "
+          f"({', '.join(f'{k} {v:.3f}' for k, v in ops.items() if 'pt::mat_' in k)}), "
+          f"PyTorch index backward kernels {index_bwd or 'none'}", flush=True)
+    if index_bwd:
+        fail("PyTorch's index backward still runs in the train step")
 
     # (c) the step at 4 spp through the kernel and through the plain search:
     # bit-equal winners, so equal tapes, loss and grads
@@ -586,11 +636,111 @@ def train_phase(smi: str) -> dict:
     if report["pass"] is not True:
         fail("cli grad-check did not pass")
 
-    return {"name": "mt_closest", "route": "cuda",
-            "source": "pathtrace_tpu_torch/csrc/mt_closest.cu",
-            "replaces": "pathtrace_tpu/ops/pallas/intersect_kernel.py:30",
-            "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return ({"name": "mt_closest", "route": "cuda",
+             "source": "pathtrace_tpu_torch/csrc/mt_closest.cu",
+             "replaces": "pathtrace_tpu/ops/pallas/intersect_kernel.py:30",
+             "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+            {"launches": mat_launches, "step_s": ms / 1e3, "busy_ms": sum(ops.values()),
+             "mat_ms": mat_ms})
+
+
+def mat_phase(smi: str, step: dict) -> dict:
+    """Phase 6, the material gather and its gradient (csrc/mat_gather.cu)
+    at the train step's shape: a replay chunk's 262,144 lanes at their
+    second bounce (the taped triangle and sphere ids of 64x64 @ 64 spp),
+    Cornell's 38-row triangle and 2-row sphere tables, six fields of 12
+    floats. Forward bit-equal to plain indexing; the backward bit-identical
+    over two runs and within 1e-4 of the terms' magnitude of PyTorch's
+    index backward, max_abs_err the largest absolute difference of the
+    forward from plain indexing and of the backward from PyTorch's; event and device times of the kernels, the plain
+    version (indexing and index_add_) and PyTorch's index backward (the
+    parent's path, library_ms); the bound: every byte once at 3.35 TB/s.
+    Returns its kernels-line entry, with the train step's seconds and
+    launch counts from train_phase."""
+    import torch
+
+    from pathtrace_tpu_torch import bench
+    from pathtrace_tpu_torch.diff.grad import MAT_FIELDS
+    from pathtrace_tpu_torch.diff.wavetape import record_paths_wavefront, unpack_rec
+    from pathtrace_tpu_torch.ops import mat_gather as mg
+    from pathtrace_tpu_torch.ops.cuda import mat_gather as mg_kernel
+
+    scene, camera, _, cfg, key = bench.train_problem("cuda", 64, 64)
+    records, _ = record_paths_wavefront(scene, camera, 64, key, cfg, lanes=262144)
+    rec = unpack_rec(records[1])
+    rows, zero = rec["pid"].shape[0], torch.zeros_like(rec["pid"])
+    cases = {"triangles": (scene.mat, torch.where(rec["hit"] & ~rec["sph"], rec["pid"], zero)),
+             "spheres": (scene.spheres.mat, torch.where(rec["sph"], rec["pid"], zero))}
+    g = torch.Generator().manual_seed(0)
+    cot = [torch.randn((rows, 3) if f in ("emittance", "albedo", "specular") else (rows,),
+                       generator=g).cuda() for f in MAT_FIELDS]
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "library_device_ms": 0.0, "bytes": 0}
+    worst = max_abs = 0.0
+
+    def abs_err(xs, ys) -> float:
+        return max((a.double() - b.double()).abs().max().item() for a, b in zip(xs, ys))
+
+    for name, (mat, idx) in cases.items():
+        tables = [getattr(mat, f) for f in MAT_FIELDS]
+        k = tables[0].shape[0]
+        fwd_err = abs_err(mg_kernel.gather(tables, idx), mg.gather_plain(tables, idx))
+        if fwd_err != 0.0:
+            fail(f"the material gather is not bit-equal to plain indexing ({name})")
+        first, second = mg_kernel.scatter(idx, cot, k), mg_kernel.scatter(idx, cot, k)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"the material gradient differs between two runs ({name})")
+        leaves = [t.detach().clone().requires_grad_(True) for t in tables]
+        outs = [t[idx.long()] for t in leaves]
+        lib = lambda: torch.autograd.grad(outs, leaves, cot, retain_graph=True)
+        mags = mg.scatter_plain(idx, [c.abs().double() for c in cot], k)
+        want = lib()
+        max_abs = max(max_abs, fwd_err, abs_err(first, want))
+        for a, b, m in zip(first, want, mags):
+            live = m > 0
+            err = ((a.double() - b.double()).abs()[live] / m[live]).max().item()
+            worst = max(worst, err)
+        both = lambda: mg_kernel.scatter(idx, cot, k) + mg_kernel.gather(tables, idx)
+        plain = lambda: mg.scatter_plain(idx, cot, k) + list(mg.gather_plain(tables, idx))
+        k_ms, p_ms, l_ms = timed_launches(both), timed_launches(plain), timed_launches(lib)
+        k_dev = device_ms(both)
+        l_dev = device_ms(lib)
+        mat_dev = {n: v for n, v in k_dev.items() if "pt::mat_" in n}
+        nbytes = 2 * (idx.numel() * idx.element_size() + rows * 12 * 4 + k * 12 * 4)
+        b_ms, b_by = bound(0.0, nbytes)
+        print(f"[6 mat] {name}: {rows} lanes x {k} rows, 12 floats; forward bit-equal, "
+              f"backward bit-identical over two runs; kernels {k_ms:.4f} ms (events; device "
+              f"{sum(mat_dev.values()):.4f}: "
+              f"{', '.join(f'{n} {v:.4f}' for n, v in mat_dev.items())}), plain {p_ms:.4f} ms, "
+              f"PyTorch's index backward {l_ms:.4f} ms (device {sum(l_dev.values()):.4f}); "
+              f"bound {b_ms:.5f} ms ({b_by}, {nbytes} bytes)", flush=True)
+        total["ms"] += k_ms
+        total["device_ms"] += sum(mat_dev.values())
+        total["plain_ms"] += p_ms
+        total["library_ms"] += l_ms
+        total["library_device_ms"] += sum(l_dev.values())
+        total["bytes"] += nbytes
+    if worst > 1e-4:
+        fail(f"the material gradient is {worst:.3e} of the terms' magnitude from PyTorch's "
+             f"index backward")
+    b_ms, b_by = bound(0.0, total["bytes"])
+    print(f"[6 mat] both tables: kernels {total['ms']:.4f} ms (device "
+          f"{total['device_ms']:.4f}), bound {b_ms:.5f} ms, {total['device_ms'] / b_ms:.1f}x; "
+          f"PyTorch's index backward {total['library_ms']:.4f} ms (device "
+          f"{total['library_device_ms']:.4f}); gradient within {worst:.3e} of the terms' "
+          f"magnitude, {max_abs:.3e} absolute; the train step {step['step_s']:.4f} s with "
+          f"{step['launches']} material kernel calls, on {smi}", flush=True)
+    return {"name": "mat_gather", "route": "cuda",
+            "source": "pathtrace_tpu_torch/csrc/mat_gather.cu", "replaces": None,
+            "launches": step["launches"], "max_abs_err": max_abs, "ms": total["device_ms"],
+            "event_ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": total["library_device_ms"],
+            "library_event_ms": total["library_ms"], "grad_rel_to_magnitude": worst,
+            "step_s": step["step_s"], "step_busy_ms": step["busy_ms"],
+            "step_mat_ms": step["mat_ms"],
+            "note": "forward and backward at the train step's shape; the "
+                    "gradient's error is relative to the sum of the terms' magnitudes"}
 
 
 def parity_phase(smi: str) -> None:
@@ -874,6 +1024,7 @@ def evidence_phase(smi: str) -> None:
     from pathtrace_tpu_torch.models import procedural
     from pathtrace_tpu_torch.ops import mt_closest as mt
     from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+    from pathtrace_tpu_torch.ops.cuda import mat_gather as mg_kernel
     from pathtrace_tpu_torch.utils import rng
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -958,9 +1109,13 @@ def evidence_phase(smi: str) -> None:
 
     # mesh gradients through B2: the wavetape against scan-AD on blob82k
     blob = procedural.blob_mesh_scene().with_kd_binned(max_tris=1024).to("cuda")
+    scatter0 = mg_kernel.SCATTER_LAUNCHES
     m = gradcheck.mesh_grads("cuda", blob)
+    scatters = mg_kernel.SCATTER_LAUNCHES - scatter0
+    tiles = -(-blob.num_tris // mg_kernel.tile_rows(12))
     print(f"[8 grads] mesh {m['scene']} {m['resolution'][0]}x{m['resolution'][1]}@{m['spp']}spp: "
-          f"{m['b2_launches']} B2 launches, wavetape vs scan-AD max rel err "
+          f"{m['b2_launches']} B2 launches, {scatters} material backwards "
+          f"({blob.num_tris}-row table in {tiles} tiles), wavetape vs scan-AD max rel err "
           f"{max(m['wavetape_vs_scan_ad_max_rel_err'].values()):.3e}, primal max abs diff "
           f"{m['primal_max_abs_diff']:.3e}, {m['seconds']:.2f} s", flush=True)
     p = m["plain_search"]
@@ -969,8 +1124,9 @@ def evidence_phase(smi: str) -> None:
           f"{max(p['max_rel_err']['wavetape'].values()):.3e}, scan-AD "
           f"{max(p['max_rel_err']['scan_ad'].values()):.3e} (bar {gradcheck.PLAIN_GRAD_TOL})",
           flush=True)
-    if not (m["pass"] and p["pass"]):
-        fail("mesh gradients through B2 disagree with scan-AD or with the plain search")
+    if not (m["pass"] and p["pass"]) or scatters < 1:
+        fail("mesh gradients through B2 disagree with scan-AD or with the plain search, or "
+             "took no material backward")
 
     # forward mode against reverse mode, every search through B3
     f = gradcheck.forward_vs_reverse("cuda", 16, 4)
@@ -1226,7 +1382,8 @@ def main() -> int:
                 os.path.join(tmp, "cornell64.png"), 64, "4 cli")
 
     kd_entry = mesh_phase(smi)
-    mt_entry = train_phase(smi)
+    mt_entry, step = train_phase(smi)
+    mat_entry = mat_phase(smi, step)
     parity_phase(smi)
     shard_phase(smi, img.mean().item(), occ)
     evidence_phase(smi)
@@ -1250,7 +1407,7 @@ def main() -> int:
                 "2**31 in phase 8",
         "inlines": {"name": "bsdf_t lobes (B1b)", "source": "pathtrace_tpu_torch/csrc/bsdf.cuh",
                     "replaces": "pathtrace_tpu/ops/pallas/bsdf_t.py:203-409"},
-    }, kd_entry, mt_entry]}))
+    }, kd_entry, mt_entry, mat_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

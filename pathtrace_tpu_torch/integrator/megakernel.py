@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.models.scene import Scene
-from pathtrace_tpu_torch.ops import bsdf
+from pathtrace_tpu_torch.ops import bsdf, mat_gather
 from pathtrace_tpu_torch.ops.bsdf import ShadeFrame
 from pathtrace_tpu_torch.ops.intersect import BIG_T, HitRecord
 from pathtrace_tpu_torch.ops.kd_raycast import kd_closest, raycast_kd, shadow_kd
@@ -118,7 +118,7 @@ def nee_contribution(scene: Scene, hit: HitRecord, frame: ShadeFrame,
 
     reached = visible_fn(scene, hit.p.detach(), sdir.detach(), torch.full_like(dist, EPS),
                          dist.detach() + 1.0, light_tri)
-    l_emit = scene.mat.emittance[light_tri.long()]
+    (l_emit,) = mat_gather.gather((scene.mat.emittance,), light_tri)
     light_color = torch.where(reached[:, None], l_emit, torch.zeros_like(l_emit))
 
     cos_a = torch.clamp(dot(light_normal, normalize(hit.p - point)), min=0.0)

@@ -17,6 +17,7 @@ import torch
 
 from pathtrace_tpu_torch.accel.binned import ClusterArrays
 from pathtrace_tpu_torch.accel.bvh import BVH_FIELDS, BVHArrays
+from pathtrace_tpu_torch.ops import mat_gather
 from pathtrace_tpu_torch.utils import math3
 
 # The KD cell leaves a scene carries across (Scene.from_numpy).
@@ -74,8 +75,9 @@ class Material:
         )
 
     def gather(self, idx: torch.Tensor) -> "Material":
-        idx = idx.long()
-        return Material(*[getattr(self, f)[idx] for f in _MAT_FIELDS])
+        """The rows idx of every field (ops/mat_gather.py: the kernels
+        while autograd records on CUDA, plain indexing otherwise)."""
+        return Material(*mat_gather.gather([getattr(self, f) for f in _MAT_FIELDS], idx))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -92,7 +92,7 @@ def test_nvcc_command_flags():
     """One compile command per csrc/*.cu (run concurrently), one link."""
     srcs = build.sources()
     assert {pathlib.Path(s).name for s in srcs} == {"bounce_kernel.cu", "kd_raycast.cu",
-                                                   "mt_closest.cu"}
+                                                   "mat_gather.cu", "mt_closest.cu"}
     assert all(pathlib.Path(s).parent == PKG / "csrc" for s in srcs)
     for src in srcs:
         cmd = build.compile_command("nvcc", src, "/x/a.o")
