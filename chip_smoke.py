@@ -129,6 +129,17 @@ benchmarks). Phases, one line each (or one per comparison):
      the N > 1 rows come from docs/torch_scaling_bench.json (a four-card
      run of the tool).
 
+ 10. the fused engine's KD variant (bounce_kernel_kd) on the benchmark's
+     refscene_blob82k (blob82k, the room, two boxes, the metal and the glass
+     sphere; KD cells of 1024): at 256x256 @ 4 spp and 65,536 lanes against
+     the wavefront through kd_closest_plain, image and every lane's rays
+     bit-equal, the plain version timed without its count; the variant at
+     256x256 @ 32 spp in one launch, its launches counted (ms, paths/s)
+     beside its bound (the 4-spp count of profile_main.kd_walk_ops and
+     b1_ops, times 8); its registers, local memory and resident warps per
+     SM; then `cli render --preset mesh512 --engine fused` at 64x64 @ 4 spp
+     as a subprocess.
+
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
 each kernel (times, the plain version's time, and the bound: the least time
@@ -155,7 +166,8 @@ sys.path.insert(0, REPO)
 # the least-time model of every kernel's work (FP32 peak and HBM rate of one
 # H100 SXM, operations counted from the sources)
 from pathtrace_tpu_torch.profile_main import (HIT_BYTES, RAY_BYTES, SLAB_OPS,  # noqa: E402
-                                              b1_ops, bound, mt_pair_ops, tensor_bytes)
+                                              b1_ops, bound, kd_walk_ops, mt_pair_ops,
+                                              tensor_bytes)
 
 
 def fail(msg: str):
@@ -1228,6 +1240,88 @@ def scale_phase() -> None:
     print(f"[9 done] phase 9 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+def fused_kd_phase(smi: str) -> dict:
+    """Phase 10, the fused engine's KD variant; returns its kernels-line
+    entry."""
+    import torch
+
+    from benchmark import program, scenes
+    from pathtrace_tpu_torch.integrator.wavefront import render_wavefront_stats
+    from pathtrace_tpu_torch.ops import kd_raycast as kd
+    from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
+    from pathtrace_tpu_torch.profile_main import schedule_share
+    from pathtrace_tpu_torch.utils import rng
+
+    # the benchmark's refscene_blob82k: blob82k, the room, two boxes, the
+    # metal and the glass sphere, KD cells of 1024 as its traffic builds them
+    with open(os.path.join(REPO, "benchmark", "configs", "refscene_blob82k.json")) as f:
+        config = json.load(f)
+    mesh = program.port_scene(scenes.scene_arrays(config), kd_max_tris=1024).to("cuda")
+    cam = program.port_camera(config, 256, 256)
+    cfg, key = program.port_config(config), rng.iter_key(rng.make_key(0), 1000)
+    lanes = bk.auto_fused_config(256 * 256)
+    pack = bk.build_fused_pack(mesh)
+    cl = mesh.clusters
+
+    # bit for bit against the wavefront through the plain KD search, every
+    # lane's rays too; the plain version timed alone, then again with the
+    # count that gives the bound's work at 4 spp
+    bk.LAUNCHES = bk.LAUNCHES_KD = 0
+    (k_img, k_rays), k4_ms = timed(lambda: bk.fused_chunk(pack, cam, 4, 0, key, cfg, lanes))
+    _, lane_rays = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, 4, 0))
+    (p_img, p_rays), p4_ms = timed(lambda: render_wavefront_stats(
+        mesh, cam, 4, key, cfg, lanes=lanes, device="cuda", search=kd.kd_closest_plain))
+    need = schedule_share(
+        mesh, cam, 4, key, cfg, lanes, search=kd.kd_closest_plain,
+        pair_ops=lambda org, dirn, t_min, t_max: kd_walk_ops(cl, org, dirn, t_min, t_max))
+    max_err = (k_img - p_img).abs().max().item()
+    print(f"[10 fused kd] refscene_blob82k ({mesh.num_tris} triangles, {mesh.num_spheres} "
+          f"spheres, {cl.num_clusters} KD cells) 256x256@4spp lanes {lanes}: variant "
+          f"{k4_ms:.3f} ms, plain KD wavefront {p4_ms:.3f} ms; max abs err {max_err:.3e}, rays "
+          f"{k_rays} vs {p_rays}, {bk.LAUNCHES_KD} variant and {bk.LAUNCHES} shared-memory "
+          f"launches", flush=True)
+    if not (torch.equal(k_img, p_img) and k_rays == p_rays and torch.equal(k_img, need["image"])
+            and k_rays == need["rays"] and torch.equal(lane_rays, need["lane_rays"])):
+        fail("the KD variant is not bit-equal to the wavefront through kd_closest_plain")
+    if bk.LAUNCHES != 0 or bk.LAUNCHES_KD != 2:
+        fail("a scene with KD cells did not take the KD variant")
+
+    # the variant at 32 spp in one launch, beside its bound: the 4-spp
+    # count's operations times 8; bytes: the KD tables and the film, once
+    spp = 32
+    bk.LAUNCHES_KD = 0
+    (img, rays), ms = timed(lambda: bk.fused_chunk(pack, cam, spp, 0, key, cfg, lanes))
+    launches = bk.LAUNCHES_KD
+    paths = 256 * 256 * spp
+    ops = b1_ops(mesh, need) * spp / 4
+    b_ms, b_by = bound(ops, tensor_bytes(cl) + lanes * 12 * max(1, 256 * 256 // lanes))
+    occ = bk.occupancy(pack)
+    print(f"[10 fused kd] 256x256@{spp}spp lanes {lanes}, {launches} launch: {ms:.3f} ms, "
+          f"{paths / ms * 1e3 / 1e6:.3f}M paths/s, {rays / ms * 1e3 / 1e6:.3f}M rays/s, "
+          f"{rays / paths:.4f} rays/path; bound {b_ms:.3f} ms ({b_by}; {ops:.4e} FP32 "
+          f"operations: the 4-spp count times {spp // 4}), {ms / b_ms:.1f}x its bound; "
+          f"{occ['registers']} registers, {occ['local_bytes']} B local memory a thread, "
+          f"{occ['blocks_per_sm']} resident blocks of {occ['block']} ({occ['warps_per_sm']} "
+          f"warps) per SM with {pack.smem_bytes} B of shared memory a block; on {smi}",
+          flush=True)
+    if launches != 1:
+        fail(f"the 32-spp chunk made {launches} launches of the KD variant, not 1")
+    if not bool(torch.isfinite(img).all()) or not 1.0 <= rays / paths <= 2 * cfg.max_iters:
+        fail("the KD variant's 32-spp image is not finite or its rays per path are out of range")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cli(["--preset", "mesh512", "--width", "64", "--height", "64", "--spp", "4",
+                 "--engine", "fused"], os.path.join(tmp, "mesh512_fused.png"), 64, "10 cli")
+
+    return {"name": "bounce_kernel_kd", "route": "cuda",
+            "source": "pathtrace_tpu_torch/csrc/bounce_kernel.cu",
+            "replaces": "pathtrace_tpu/ops/pallas/bounce_kernel.py:411 on scenes with KD cells",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": p4_ms,
+            "plain_shape": f"256x256@4spp, where the variant took {k4_ms:.3f} ms",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -1349,7 +1443,7 @@ def main() -> int:
     # same paths (profile_main.schedule_share).
     table = scene.tris.search_table
     need = schedule_share(scene, cam, 32, pass_key, cfg, lanes, search=mt.mt_closest_plain,
-                          pair_ops=lambda org, dirn: mt_pair_ops(table, org, dirn))
+                          pair_ops=lambda org, dirn, *_: mt_pair_ops(table, org, dirn))
     mt_ops, hits, c_rays, iters = need["mt_ops"], need["hits"], need["rays"], need["iters"]
     main_ops = b1_ops(scene, need)
     b1_ms, b1_by = bound(main_ops, tensor_bytes(scene) + k_img.numel() * 4)
@@ -1388,6 +1482,7 @@ def main() -> int:
     shard_phase(smi, img.mean().item(), occ)
     evidence_phase(smi)
     scale_phase()
+    b1kd_entry = fused_kd_phase(smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1407,7 +1502,7 @@ def main() -> int:
                 "2**31 in phase 8",
         "inlines": {"name": "bsdf_t lobes (B1b)", "source": "pathtrace_tpu_torch/csrc/bsdf.cuh",
                     "replaces": "pathtrace_tpu/ops/pallas/bsdf_t.py:203-409"},
-    }, kd_entry, mt_entry, mat_entry]}))
+    }, kd_entry, mt_entry, mat_entry, b1kd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -56,10 +56,25 @@
 //   division and no branch for every pair, the IEEE 1/det and t only for
 //   the pairs that pass the backface cull and the barycentric tests;
 // - 128 threads a block and no register cap: 65,536 lanes are 512 blocks,
-//   four per SM at 108 registers. A cap at 64 or 80 registers (so that
+//   four per SM at 101 registers. A cap at 64 or 80 registers (so that
 //   131,072 lanes fit one wave) spilled and measured no faster, nor did
 //   computing NEE's BSDF term before its shadow scan or deciding the
 //   shadow ray at the light triangle first (PERF.md).
+//
+// A scene whose triangles exceed shared memory takes bounce_kernel_kd, the
+// same paths, draws, shading and film with the triangle searches over its
+// KD cells (ops/kd_raycast.py), whose plain version is the wavefront through
+// kd_closest_plain. Both kernels run one path step (shade_hit, light_sample,
+// nee_term, scatter, start_path, commit). The variant keeps the cell table,
+// the spheres and the lights in shared memory and reads the member rows
+// from global memory (L2). Its searches are kernel B2's walk (kd_walk.cuh),
+// in which one warp walks one ray, measured faster than one thread a ray
+// (PERF.md): each warp walks its lanes' closest-hit rays one after another,
+// then their shadow rays, so its lanes stay in the loop until all of them
+// are done. Caps at 96 and 80 registers (20 and 24 warps an SM) ran no
+// faster, within the noise of three rounds: 65,536 lanes are fewer than
+// four blocks an SM, so the lanes, not the registers, bound the warps in
+// flight.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no fast math: IEEE division, sqrt and denormals), so the
@@ -69,6 +84,7 @@
 #include <stdint.h>
 
 #include "bsdf.cuh"
+#include "kd_walk.cuh"
 #include "mt.cuh"
 
 namespace pt {
@@ -187,11 +203,11 @@ struct Hit {
   Material mat;
 };
 
-// raycast_brute + finalize_hit for one ray on [0, BIG_T].
-__device__ __forceinline__ Hit raycast(const float* geo, const float* __restrict__ attr,
-                                       const float* sph, const PtParams& P, V3 org, V3 dir) {
+// finalize_hit for one ray on [0, BIG_T] whose closest triangle is th: the
+// sphere scan against it, then the winner's frame and material.
+__device__ __forceinline__ Hit shade_hit(const TriHit& th, const float* __restrict__ attr,
+                                         const float* sph, const PtParams& P, V3 org, V3 dir) {
   Hit h;
-  TriHit th = closest_tri(geo, P.num_tris, org, dir, 0.0f, BIG_T);
   float sph_t = INFINITY;
   int sph_idx = 0;
   bool sph_hit = false;
@@ -225,44 +241,106 @@ __device__ __forceinline__ Hit raycast(const float* geo, const float* __restrict
   return h;
 }
 
+// raycast_brute + finalize_hit for one ray on [0, BIG_T].
+__device__ __forceinline__ Hit raycast(const float* geo, const float* __restrict__ attr,
+                                       const float* sph, const PtParams& P, V3 org, V3 dir) {
+  return shade_hit(closest_tri(geo, P.num_tris, org, dir, 0.0f, BIG_T), attr, sph, P, org, dir);
+}
+
+// NEE's light sample: the point, its light's row, and the shadow ray from
+// the hit to it on [EPS, s_tmax].
+struct LightSample {
+  V3 point, sdir, light_normal;
+  float dist2, s_tmax, area;
+  int light_tri;
+};
+
+__device__ __forceinline__ LightSample light_sample(const float* lights, const PtParams& P,
+                                                    const Hit& h, const float u[8]) {
+  LightSample s;
+  int nl = P.num_lights;
+  int slot = min((int)(u[0] * (float)nl), nl - 1);
+  const float* row = lights + slot * LIGHT_STRIDE;
+  float r1 = safe_sqrt(u[1]);
+  float r2 = u[2];
+  s.point = (1.0f - r1) * ld3(row) + (r1 * (1.0f - r2)) * ld3(row + 3) + (r1 * r2) * ld3(row + 6);
+  s.area = row[9];
+  s.light_normal = ld3(row + 10);
+  s.light_tri = (int)row[13];
+
+  V3 to_light = s.point - h.p;
+  s.dist2 = sqlen(to_light);
+  float dist = sqrtf(fmaxf(s.dist2, TINY));
+  s.sdir = normalize(to_light);
+  s.s_tmax = dist + 1.0f;
+  return s;
+}
+
+// NEE's term once the shadow ray's closest triangle st is known: the ray is
+// accepted iff the winner is the sampled light triangle and not a sphere.
+__device__ __forceinline__ V3 nee_term(const float* __restrict__ attr, const float* sph,
+                                       const PtParams& P, const Hit& h, V3 wo,
+                                       const LightSample& s, const TriHit& st) {
+  bool s_use_sph = false;
+  if (P.num_spheres > 0) {
+    float so_t;
+    int so_idx;
+    bool so_hit = closest_sphere(sph, P.num_spheres, h.p, s.sdir, EPS, st.hit ? st.t : s.s_tmax,
+                                 &so_t, &so_idx);
+    s_use_sph = so_hit && (!st.hit || so_t < st.t);
+  }
+  if (!(st.hit && !s_use_sph && st.idx == s.light_tri)) return zero3();
+
+  V3 l_emit = ld3(attr + (long long)s.light_tri * ATTR_STRIDE + 27);
+  float cos_a = fmaxf(dot(s.light_normal, normalize(h.p - s.point)), 0.0f);
+  float pdf_light = safe_div(1.0f, s.area) / (float)P.num_lights;
+  V3 brdfcos = eval_bsdfcos(h.mat, h.frame, wo, s.sdir);
+  V3 contrib = brdfcos * l_emit * cos_a / fmaxf(s.dist2 * pdf_light, TINY);
+  return finite3(contrib) ? contrib : zero3();  // NaN skip (CudaUtil.cuh:271)
+}
+
 // Next-event estimation (megakernel.nee_contribution): uniform light pick,
 // area sample, shadow ray on [EPS, dist+1] accepted iff the winner is the
 // sampled light triangle and not a sphere. The caller counts the ray.
 __device__ __forceinline__ V3 nee(const float* geo, const float* __restrict__ attr,
                                   const float* sph, const float* lights, const PtParams& P,
                                   const Hit& h, V3 wo, const float u[8]) {
-  int nl = P.num_lights;
-  int slot = min((int)(u[0] * (float)nl), nl - 1);
-  const float* row = lights + slot * LIGHT_STRIDE;
-  float r1 = safe_sqrt(u[1]);
-  float r2 = u[2];
-  V3 point = (1.0f - r1) * ld3(row) + (r1 * (1.0f - r2)) * ld3(row + 3) + (r1 * r2) * ld3(row + 6);
-  float area = row[9];
-  V3 light_normal = ld3(row + 10);
-  int light_tri = (int)row[13];
+  LightSample s = light_sample(lights, P, h, u);
+  TriHit st = closest_tri(geo, P.num_tris, h.p, s.sdir, EPS, s.s_tmax);
+  return nee_term(attr, sph, P, h, wo, s, st);
+}
 
-  V3 to_light = point - h.p;
-  float dist2 = sqlen(to_light);
-  float dist = sqrtf(fmaxf(dist2, TINY));
-  V3 sdir = normalize(to_light);
-  float s_tmax = dist + 1.0f;
-  TriHit st = closest_tri(geo, P.num_tris, h.p, sdir, EPS, s_tmax);
-  bool s_use_sph = false;
-  if (P.num_spheres > 0) {
-    float so_t;
-    int so_idx;
-    bool so_hit = closest_sphere(sph, P.num_spheres, h.p, sdir, EPS, st.hit ? st.t : s_tmax,
-                                 &so_t, &so_idx);
-    s_use_sph = so_hit && (!st.hit || so_t < st.t);
-  }
-  if (!(st.hit && !s_use_sph && st.idx == light_tri)) return zero3();
+// One path's state (make_bounce_fn), reset at each regeneration.
+struct PathState {
+  V3 org, dir, radiance, weight;
+  int depth, refract_cnt;
+  bool refracted;
+};
 
-  V3 l_emit = ld3(attr + (long long)light_tri * ATTR_STRIDE + 27);
-  float cos_a = fmaxf(dot(light_normal, normalize(h.p - point)), 0.0f);
-  float pdf_light = safe_div(1.0f, area) / (float)nl;
-  V3 brdfcos = eval_bsdfcos(h.mat, h.frame, wo, sdir);
-  V3 contrib = brdfcos * l_emit * cos_a / fmaxf(dist2 * pdf_light, TINY);
-  return finite3(contrib) ? contrib : zero3();  // NaN skip (CudaUtil.cuh:271)
+// BSDF sampling, the next ray, the refraction cap and Russian roulette of a
+// shaded hit (megakernel.make_bounce_fn): whether the path ends.
+__device__ __forceinline__ bool scatter(const PtParams& P, const Hit& h, V3 wo, const float u[8],
+                                        PathState& s) {
+  V3 wi = sample_bsdf(h.mat, h.frame, wo, u[3], u[4], u[5]);
+  if (sqlen(wi) <= EPS) return true;  // a dead sample ends the path (CudaUtil.cuh:335-338)
+  V3 w1 = eval_bsdfcos(h.mat, h.frame, wo, wi);
+  float w2 = fmaxf(pdf_bsdf(h.mat, h.frame, wo, wi), P.pdf_clamp);
+  s.weight = s.weight * (w1 / w2);
+  if (h.mat.opacity < ONE_MINUS_EPS)  // sticky flag (CudaUtil.cuh:307)
+    s.refracted = dot(h.frame.normal, wo) * dot(h.frame.normal, wi) <= 0.0f;
+  s.org = h.p + h.frame.normal * (s.refracted ? -EPS : EPS);
+  s.dir = normalize(wi);
+
+  bool over_cap = s.refracted && s.refract_cnt > P.refract_cap;  // `RefractCnt++ > 8`
+  s.refract_cnt += s.refracted ? 1 : 0;
+
+  bool rr_lane = !s.refracted && s.depth >= P.rr_bounce;
+  float rr_prob = clampf(max3(s.weight), P.rr_stop_prob, 1.0f);
+  bool rr_survive = u[6] < rr_prob;
+  if (rr_lane && rr_survive) s.weight = s.weight / rr_prob;
+
+  s.depth += s.refracted ? 0 : 1;
+  return over_cap || (rr_lane && !rr_survive) || s.depth >= P.max_bounce;
 }
 
 // The global path id of a local one (wavefront._make_to_global).
@@ -297,6 +375,30 @@ __device__ __forceinline__ void draws(const PtParams& P, uint32_t rid, uint32_t 
   }
 }
 
+// Starts the path of local id base_path + off, if there is one: its camera
+// ray, keyed by its global id rid, and a fresh state.
+__device__ __forceinline__ void start_path(const PtParams& P, long long off, PathState& s,
+                                           uint32_t& rid) {
+  if (off < P.total_paths) {
+    long long gid = to_global(P, P.base_path + off);
+    rid = (uint32_t)gid;
+    camera_ray(P, gid, &s.org, &s.dir);
+  }
+  s.radiance = zero3();
+  s.weight = v3(1.0f, 1.0f, 1.0f);
+  s.depth = s.refract_cnt = 0;
+  s.refracted = false;
+}
+
+// Adds the ended path of local id base_path + off to the lane's film slot.
+__device__ __forceinline__ void commit(const PtParams& P, float* film, int lane, long long off,
+                                       const PathState& s) {
+  float* slot = film + 3 * ((off / P.lanes) % P.k_pix * P.lanes + lane);
+  slot[0] += s.radiance.x;
+  slot[1] += s.radiance.y;
+  slot[2] += s.radiance.z;
+}
+
 __global__ void __launch_bounds__(BLOCK)
     bounce_kernel(PtParams P, const float* __restrict__ tri_geo, const float* __restrict__ tri_attr,
                   const float* __restrict__ spheres, const float* __restrict__ lights,
@@ -320,80 +422,178 @@ __global__ void __launch_bounds__(BLOCK)
   }
   long long rays = 0;
   long long off = lane;  // the current path's local id is base_path + off
-  // one path's state (make_bounce_fn), reset at each regeneration; rid is
-  // its global id as the Philox counter takes it (rng.uniforms)
-  V3 org, dir, radiance = zero3(), weight = v3(1.0f, 1.0f, 1.0f);
-  int depth = 0, refract_cnt = 0;
-  bool refracted = false;
+  // rid is the path's global id as the Philox counter takes it (rng.uniforms)
+  PathState s;
   uint32_t it = 0, rid = 0;
-  if (off < P.total_paths) {
-    long long gid = to_global(P, P.base_path + off);
-    rid = (uint32_t)gid;
-    camera_ray(P, gid, &org, &dir);
-  }
+  start_path(P, off, s, rid);
   const bool do_nee = P.nee && P.num_lights > 0;
   // The loop leaves only through its condition: a `break` in the body would
   // move the point where a warp's diverged lanes meet again past the loop,
   // and lanes that regenerated would run the next scans apart from the rest.
   while (off < P.total_paths) {
     rays += 1;
-    Hit h = raycast(geo, tri_attr, sph, P, org, dir);
+    Hit h = raycast(geo, tri_attr, sph, P, s.org, s.dir);
     bool ended = true;
     if (!h.hit) {  // miss: += weight * gray, path ends (CudaUtil.cuh:375-379)
-      radiance = radiance + weight * ld3(P.miss);
+      s.radiance = s.radiance + s.weight * ld3(P.miss);
     } else {
       float u[8];
       draws(P, rid, it, u);
-      V3 wo = -dir;
-      if (sqlen(h.mat.emittance) > EPS) radiance = radiance + weight * h.mat.emittance;
+      V3 wo = -s.dir;
+      if (sqlen(h.mat.emittance) > EPS) s.radiance = s.radiance + s.weight * h.mat.emittance;
       if (do_nee) {
-        radiance = radiance + weight * nee(geo, tri_attr, sph, li, P, h, wo, u);
+        s.radiance = s.radiance + s.weight * nee(geo, tri_attr, sph, li, P, h, wo, u);
         rays += 1;
       }
-
-      V3 wi = sample_bsdf(h.mat, h.frame, wo, u[3], u[4], u[5]);
-      if (!(sqlen(wi) <= EPS)) {  // else a dead sample ends the path (CudaUtil.cuh:335-338)
-        V3 w1 = eval_bsdfcos(h.mat, h.frame, wo, wi);
-        float w2 = fmaxf(pdf_bsdf(h.mat, h.frame, wo, wi), P.pdf_clamp);
-        weight = weight * (w1 / w2);
-        if (h.mat.opacity < ONE_MINUS_EPS)  // sticky flag (CudaUtil.cuh:307)
-          refracted = dot(h.frame.normal, wo) * dot(h.frame.normal, wi) <= 0.0f;
-        org = h.p + h.frame.normal * (refracted ? -EPS : EPS);
-        dir = normalize(wi);
-
-        bool over_cap = refracted && refract_cnt > P.refract_cap;  // `RefractCnt++ > 8`
-        refract_cnt += refracted ? 1 : 0;
-
-        bool rr_lane = !refracted && depth >= P.rr_bounce;
-        float rr_prob = clampf(max3(weight), P.rr_stop_prob, 1.0f);
-        bool rr_survive = u[6] < rr_prob;
-        if (rr_lane && rr_survive) weight = weight / rr_prob;
-
-        depth += refracted ? 0 : 1;
-        ended = over_cap || (rr_lane && !rr_survive) || depth >= P.max_bounce;
-      }
+      ended = scatter(P, h, wo, u, s);
     }
     if (ended) {  // commit, then regenerate in place: the lane's next strided path
-      float* slot = film + 3 * ((off / P.lanes) % P.k_pix * P.lanes + lane);
-      slot[0] += radiance.x;
-      slot[1] += radiance.y;
-      slot[2] += radiance.z;
+      commit(P, film, lane, off, s);
       off += P.lanes;
-      if (off < P.total_paths) {
-        long long gid = to_global(P, P.base_path + off);
-        rid = (uint32_t)gid;
-        camera_ray(P, gid, &org, &dir);
-      }
-      radiance = zero3();
-      weight = v3(1.0f, 1.0f, 1.0f);
-      depth = refract_cnt = 0;
-      refracted = false;
+      start_path(P, off, s, rid);
       it = 0;
     } else {
       ++it;
     }
   }
   rays_out[lane] = rays;
+}
+
+// ---- the KD variant ---------------------------------------------------------
+
+// The KD tables as the launch passes them: the cells (bmin, bmax (M, 3),
+// first slot and slot count (M,)), the member rows [v0 e1 e2] (D, 9) and
+// their original triangle ids (D,), as ops/kd_raycast.py states them.
+struct KdTables {
+  const float *bmin, *bmax;
+  const int *start, *count;
+  const float* members;
+  const int* ids;
+  int num_cells;
+};
+
+// What a warp walks: the cell table in shared memory, the warp's list of
+// crossed cells there, the member rows and ids in global memory.
+struct KdWalk {
+  const float* cells;
+  int num_cells;
+  float2* list;
+  const float* members;
+  const int* ids;
+};
+
+// The closest triangle of each lane's ray on [tmin, tmax] that `want`s one,
+// over the KD cells: the warp walks the rays one after another, each with
+// all its 32 lanes (kd_walk.cuh, kernel B2's walk), so every lane of the
+// warp must call it. A lane that wants none gets a miss.
+template <bool CLOSEST>
+__device__ __forceinline__ TriHit warp_closest(int wl, bool want, V3 org, V3 dir, float tmin,
+                                               float tmax, const KdWalk& kd) {
+  TriHit out{INFINITY, 0.0f, 0.0f, 0, false};
+  unsigned todo = __ballot_sync(FULL, want);
+  while (todo) {  // the same in every lane
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    Ray ray;
+    ray.o = {__shfl_sync(FULL, org.x, src), __shfl_sync(FULL, org.y, src),
+             __shfl_sync(FULL, org.z, src)};
+    ray.d = {__shfl_sync(FULL, dir.x, src), __shfl_sync(FULL, dir.y, src),
+             __shfl_sync(FULL, dir.z, src)};
+    ray.inv = {safe_inv(ray.d.x), safe_inv(ray.d.y), safe_inv(ray.d.z)};
+    ray.lo = __shfl_sync(FULL, tmin, src);
+    ray.hi = __shfl_sync(FULL, tmax, src);
+    Best b = {INFINITY, 0.0f, 0.0f, INT_MAX};
+    walk(wl, kd.cells, kd.num_cells, kd.list, ray, kd.members, kd.ids, CLOSEST, b);
+    if (wl == src && b.id != INT_MAX) out = {b.t, b.u, b.v, b.id, true};
+  }
+  return out;
+}
+
+// bounce_kernel with the triangle searches over KD cells: the same paths,
+// draws, shading and film, for scenes whose triangles exceed shared memory.
+// The block keeps the cell table, the spheres, the lights and one list of
+// crossed cells a warp in shared memory; the member rows and the shading rows
+// stay in global memory (L2). The walk is B2's, one warp a ray, so the lanes
+// of a warp stay in the loop until all of them are done and meet at each
+// search: first every live lane's closest-hit ray, then the shadow ray of
+// every lane that shades a hit with NEE.
+__global__ void __launch_bounds__(BLOCK)
+    bounce_kernel_kd(PtParams P, KdTables K, const float* __restrict__ tri_attr,
+                     const float* __restrict__ spheres, const float* __restrict__ lights,
+                     float* __restrict__ film, long long* __restrict__ rays_out) {
+  extern __shared__ float smem[];
+  const int n_sph = P.num_spheres * SPHERE_STRIDE;
+  const int n_li = P.num_lights * LIGHT_STRIDE;
+  float* sph = smem + K.num_cells * CELL_FLOATS;
+  for (int j = threadIdx.x; j < n_sph + n_li; j += blockDim.x)
+    sph[j] = j < n_sph ? spheres[j] : lights[j - n_sph];
+  load_cells(smem, K.num_cells, K.bmin, K.bmax, K.start, K.count);  // and the barrier
+  const float* li = sph + n_sph;
+  const int wl = threadIdx.x & 31;
+  const KdWalk kd = {smem, K.num_cells, (float2*)(sph + n_sph + n_li) + (threadIdx.x >> 5) * LIST_CAP,
+                     K.members, K.ids};
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = lane < P.lanes;  // a thread past the lanes stays for the walks
+  if (valid)
+    for (int k = 0; k < P.k_pix; ++k) {
+      float* slot = film + 3 * ((long long)k * P.lanes + lane);
+      slot[0] = slot[1] = slot[2] = 0.0f;
+    }
+  long long rays = 0;
+  long long off = valid ? lane : P.total_paths;
+  PathState s;
+  uint32_t it = 0, rid = 0;
+  start_path(P, off, s, rid);
+  const bool do_nee = P.nee && P.num_lights > 0;
+  while (__any_sync(FULL, off < P.total_paths)) {
+    const bool live = off < P.total_paths;
+    const TriHit th = warp_closest<true>(wl, live, s.org, s.dir, 0.0f, BIG_T, kd);
+    Hit h{};
+    LightSample ls{};
+    float u[8];
+    const V3 wo = -s.dir;
+    bool shaded = false, ended = true;
+    if (live) {
+      rays += 1;
+      h = shade_hit(th, tri_attr, sph, P, s.org, s.dir);
+      if (!h.hit) {  // miss: += weight * gray, path ends (CudaUtil.cuh:375-379)
+        s.radiance = s.radiance + s.weight * ld3(P.miss);
+      } else {
+        draws(P, rid, it, u);
+        if (sqlen(h.mat.emittance) > EPS) s.radiance = s.radiance + s.weight * h.mat.emittance;
+        if (do_nee) ls = light_sample(li, P, h, u);
+        shaded = true;
+      }
+    }
+    const TriHit st = warp_closest<false>(wl, shaded && do_nee, h.p, ls.sdir, EPS, ls.s_tmax, kd);
+    if (shaded) {
+      if (do_nee) {
+        s.radiance = s.radiance + s.weight * nee_term(tri_attr, sph, P, h, wo, ls, st);
+        rays += 1;
+      }
+      ended = scatter(P, h, wo, u, s);
+    }
+    if (live) {
+      if (ended) {  // commit, then regenerate in place
+        commit(P, film, lane, off, s);
+        off += P.lanes;
+        start_path(P, off, s, rid);
+        it = 0;
+      } else {
+        ++it;
+      }
+    }
+  }
+  if (valid) rays_out[lane] = rays;
+}
+
+// Dynamic shared memory of a KD variant block: the cells, the spheres, the
+// lights and the warps' lists.
+__host__ inline size_t kd_smem(int num_cells, int num_spheres, int num_lights) {
+  return sizeof(float) * ((size_t)num_cells * CELL_FLOATS + (size_t)num_spheres * SPHERE_STRIDE +
+                          (size_t)num_lights * LIGHT_STRIDE) +
+         sizeof(float2) * LIST_CAP * (BLOCK / 32);
 }
 
 }  // namespace pt
@@ -416,18 +616,19 @@ extern "C" int pt_bounce_render(const PtParams* params, const float* tri_geo, co
   return (int)cudaGetLastError();
 }
 
-// The kernel as built and as the card holds it at `smem` bytes of dynamic
-// shared memory: out4 = {registers a thread, local memory bytes a thread
-// (spills), resident blocks per SM, threads a block}. Returns the first
-// CUDA error (0 = none).
-extern "C" int pt_bounce_occupancy(int smem, int* out4) {
+// The kernel (its KD variant if `kd`) as built and as the card holds it at
+// `smem` bytes of dynamic shared memory: out4 = {registers a thread, local
+// memory bytes a thread (spills), resident blocks per SM, threads a block}.
+// Returns the first CUDA error (0 = none).
+extern "C" int pt_bounce_occupancy(int kd, int smem, int* out4) {
+  const void* fn = kd ? (const void*)pt::bounce_kernel_kd : (const void*)pt::bounce_kernel;
   cudaFuncAttributes attr = {};
-  cudaError_t err = cudaFuncGetAttributes(&attr, pt::bounce_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pt::bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pt::bounce_kernel, pt::BLOCK, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, pt::BLOCK, smem);
   out4[0] = attr.numRegs;
   out4[1] = (int)attr.localSizeBytes;
   out4[2] = blocks;
@@ -443,4 +644,28 @@ extern "C" int pt_bounce_strides(int* out4) {
   out4[2] = pt::SPHERE_STRIDE;
   out4[3] = pt::LIGHT_STRIDE;
   return (int)sizeof(PtParams);
+}
+
+// The KD variant's launch on `stream`, as pt_bounce_render's, with the KD
+// tables of ops/kd_raycast.py in place of the search table.
+extern "C" int pt_bounce_render_kd(const PtParams* params, int num_cells, const float* bmin,
+                                   const float* bmax, const int* start, const int* count,
+                                   const float* members, const int* ids, const float* tri_attr,
+                                   const float* spheres, const float* lights, float* film,
+                                   long long* rays, void* stream) {
+  const PtParams P = *params;
+  const pt::KdTables K = {bmin, bmax, start, count, members, ids, num_cells};
+  size_t smem = pt::kd_smem(num_cells, P.num_spheres, P.num_lights);
+  cudaError_t err = cudaFuncSetAttribute(pt::bounce_kernel_kd,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = (P.lanes + pt::BLOCK - 1) / pt::BLOCK;
+  pt::bounce_kernel_kd<<<grid, pt::BLOCK, smem, (cudaStream_t)stream>>>(P, K, tri_attr, spheres,
+                                                                      lights, film, rays);
+  return (int)cudaGetLastError();
+}
+
+// The KD variant's dynamic shared-memory bytes at these table sizes.
+extern "C" int pt_bounce_kd_smem(int num_cells, int num_spheres, int num_lights) {
+  return (int)pt::kd_smem(num_cells, num_spheres, num_lights);
 }

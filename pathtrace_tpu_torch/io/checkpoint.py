@@ -22,8 +22,11 @@ import numpy as np
 import torch
 
 from pathtrace_tpu_torch.models.scene import Material
+from pathtrace_tpu_torch.utils.profiling import span
 
 FORMAT_VERSION = 1
+# Bytes of the checkpoint files save_state wrote in this process.
+BYTES_WRITTEN = 0
 
 
 def _numpy(x) -> np.ndarray:
@@ -32,23 +35,28 @@ def _numpy(x) -> np.ndarray:
 
 def save_state(path: str, accum_image, passes_done: int, seed: int, spp_per_pass: int,
                tri_mat: Optional[Material] = None, sph_mat: Optional[Material] = None) -> None:
-    arrays = {
-        "accum_image": _numpy(accum_image).astype(np.float32),
-        "meta": np.frombuffer(json.dumps({
-            "version": FORMAT_VERSION,
-            "passes_done": int(passes_done),
-            "seed": int(seed),
-            "spp_per_pass": int(spp_per_pass),
-            "has_materials": tri_mat is not None,
-        }).encode(), dtype=np.uint8),
-    }
-    for prefix, mat in (("tri", tri_mat), ("sph", sph_mat)):
-        if mat is not None:
-            for f in dataclasses.fields(Material):
-                arrays[f"{prefix}_{f.name}"] = _numpy(getattr(mat, f.name))
-    tmp = path + ".tmp"
-    np.savez(tmp, **arrays)  # numpy appends .npz
-    os.replace(tmp + ".npz", path)
+    """Writes the state to `path` (span io.checkpoint; BYTES_WRITTEN counts
+    the file's bytes)."""
+    global BYTES_WRITTEN
+    with span("io.checkpoint"):
+        arrays = {
+            "accum_image": _numpy(accum_image).astype(np.float32),
+            "meta": np.frombuffer(json.dumps({
+                "version": FORMAT_VERSION,
+                "passes_done": int(passes_done),
+                "seed": int(seed),
+                "spp_per_pass": int(spp_per_pass),
+                "has_materials": tri_mat is not None,
+            }).encode(), dtype=np.uint8),
+        }
+        for prefix, mat in (("tri", tri_mat), ("sph", sph_mat)):
+            if mat is not None:
+                for f in dataclasses.fields(Material):
+                    arrays[f"{prefix}_{f.name}"] = _numpy(getattr(mat, f.name))
+        tmp = path + ".tmp"
+        np.savez(tmp, **arrays)  # numpy appends .npz
+        BYTES_WRITTEN += os.path.getsize(tmp + ".npz")
+        os.replace(tmp + ".npz", path)
 
 
 def load_state(path: str) -> dict:

@@ -13,6 +13,8 @@ import zlib
 import numpy as np
 import torch
 
+from pathtrace_tpu_torch.utils.profiling import span
+
 
 def aces_film(x: torch.Tensor) -> torch.Tensor:
     """ACES filmic fit, exact reference constants (CudaUtil.cuh:383-391)."""
@@ -42,11 +44,14 @@ def encode_png(rgb: np.ndarray) -> bytes:
 
 
 def write_png(path: str, linear_image, tonemap: bool = True) -> None:
-    img = torch.as_tensor(linear_image, dtype=torch.float32).cpu()
-    if tonemap:
-        img = aces_film(img)
-    with open(path, "wb") as f:
-        f.write(encode_png(to_uint8(img.numpy())))
+    """The image to the host, tonemapped, encoded and written (span
+    io.png)."""
+    with span("io.png"):
+        img = torch.as_tensor(linear_image, dtype=torch.float32).cpu()
+        if tonemap:
+            img = aces_film(img)
+        with open(path, "wb") as f:
+            f.write(encode_png(to_uint8(img.numpy())))
 
 
 def write_npy(path: str, linear_image) -> None:

@@ -3,7 +3,8 @@
 build_preset_scene applies the JAX package's size rule
 (presets.py:94-106): a `use_bvh` preset with more than 4096 triangles gets
 KD cells (Scene.with_kd_binned), the mesh path; `mesh512` (the blob82k
-OBJ asset) and `multihost1024` (an 82k-triangle icosphere) take it. A
+OBJ asset) and `multihost1024` (an 82k-triangle icosphere) take it, and
+`--engine fused` renders them through the fused kernel's KD variant. A
 smaller `use_bvh` preset gets the SAH BVH (Scene.with_bvh), which reorders
 its triangles into leaf order as JAX's does, and is searched by the
 all-triangles route: JAX adds MT-matmul coefficients (with_mt, a TPU

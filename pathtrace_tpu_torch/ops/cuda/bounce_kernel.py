@@ -8,6 +8,12 @@ wavefront (integrator/wavefront.py), which the wrapper runs when the
 scene's tensors lie on the CPU. On a CUDA device the wrapper launches the
 kernel or raises; it never falls back.
 
+A scene that carries KD cells (Scene.with_kd_binned) takes the kernel's KD
+variant, `pt::bounce_kernel_kd`, whose triangle searches walk the cells in
+global memory as kernel B2 does; any other scene takes the kernel with its
+whole search table in shared memory. The variant's plain version is the
+same wavefront through the KD search (ops/kd_raycast.py::kd_closest_plain).
+
 The kernel library is built by nvcc at first launch (ops/cuda/build.py);
 importing this module needs neither nvcc nor a GPU.
 """
@@ -17,27 +23,43 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
+from pathtrace_tpu_torch.accel.binned import ClusterArrays
 from pathtrace_tpu_torch.core.camera import Camera
 from pathtrace_tpu_torch.integrator.config import IntegratorConfig
 from pathtrace_tpu_torch.integrator.wavefront import (_run_wavefront, accumulate_chunks,
                                                       check_lanes)
 from pathtrace_tpu_torch.models.scene import Scene
 from pathtrace_tpu_torch.ops.cuda import build
+from pathtrace_tpu_torch.ops.cuda import kd_raycast as kd_kernel
 from pathtrace_tpu_torch.utils import rng
 from pathtrace_tpu_torch.utils.device import resolve_device
 from pathtrace_tpu_torch.utils.profiling import span
 
-# Kernel launches made by `launch` in this process. chip_smoke.py resets it
-# before driving the main path and reads it after.
+# Kernel launches made by `launch` in this process: of the shared-memory
+# kernel, and of its KD variant. chip_smoke.py resets them before driving a
+# path and reads them after.
 LAUNCHES = 0
+LAUNCHES_KD = 0
 
 # Row widths of the packed tables; csrc/bounce_kernel.cu has the same.
 GEO_STRIDE, ATTR_STRIDE, SPHERE_STRIDE, LIGHT_STRIDE = 12, 40, 16, 16
 # Dynamic shared memory a block may use on sm_90 (232,448 bytes).
 MAX_SMEM_BYTES = 232448
+# Threads of a block; csrc/bounce_kernel.cu has the same.
+BLOCK = 128
+
+
+def kd_smem_bytes(num_cells: int, num_spheres: int, num_lights: int) -> int:
+    """The KD variant's shared memory a block: the cells (kernel B2's
+    records), the spheres, the lights, and one list of crossed cells a warp
+    (8 B an entry)."""
+    return (kd_kernel.CELL_SMEM_BYTES * num_cells
+            + 4 * (SPHERE_STRIDE * num_spheres + LIGHT_STRIDE * num_lights)
+            + 8 * kd_kernel.LIST_CAP * (BLOCK // 32))
 
 
 class PtParams(ctypes.Structure):
@@ -65,32 +87,43 @@ class PtParams(ctypes.Structure):
 class FusedPack:
     """Device tables the kernel reads.
 
-    tri_geo  (T, 12): v0 e1 e2 pad - the search table, staged in shared memory
+    tri_geo  (T, 12): v0 e1 e2 pad - the search table, staged in shared
+                      memory; no rows in a pack with KD cells
     tri_attr (T, 40): n0 n1 n2 t0 t1 t2 b0 b1 b2 emittance albedo specular
                       opacity roughness metallic pad - read at the winner
     spheres  (S, 16): center radius emittance albedo specular opacity
                       roughness metallic
     lights   (L, 16): v0 v1 v2 area normal (Scene.light_pack) tri_id pad pad
+    clusters: the scene's KD cells, or None. With cells the KD variant
+              searches them in global memory and stages the cell table in
+              shared memory, in place of tri_geo.
     """
 
     tri_geo: torch.Tensor
     tri_attr: torch.Tensor
     spheres: torch.Tensor
     lights: torch.Tensor
+    clusters: Optional[ClusterArrays] = None
 
     @property
     def smem_bytes(self) -> int:
+        """The dynamic shared memory a block of its kernel takes."""
+        if self.clusters is not None:
+            return kd_smem_bytes(self.clusters.num_clusters, self.spheres.shape[0],
+                                 self.lights.shape[0])
         return 4 * (self.tri_geo.numel() + self.spheres.numel() + self.lights.numel())
 
 
 def build_fused_pack(scene: Scene) -> FusedPack:
-    """Pack the scene's tables on the scene's device. Raises when the
-    search table does not fit one block's shared memory."""
+    """Pack the scene's tables on the scene's device, with its KD cells if
+    it has them. Raises when a block's tables do not fit its shared memory:
+    the search table of a scene without cells, or the cell table."""
     tr, mat, sp = scene.tris, scene.mat, scene.spheres
     dev = scene.device
     t, s, nl = scene.num_tris, scene.num_spheres, scene.num_lights
-    geo = torch.zeros((t, GEO_STRIDE), device=dev)
-    geo[:, 0:3], geo[:, 3:6], geo[:, 6:9] = tr.v0, tr.e1, tr.e2
+    geo = torch.zeros((0 if scene.clusters is not None else t, GEO_STRIDE), device=dev)
+    if scene.clusters is None:
+        geo[:, 0:3], geo[:, 3:6], geo[:, 6:9] = tr.v0, tr.e1, tr.e2
     attr = torch.zeros((t, ATTR_STRIDE), device=dev)
     for j, f in enumerate(("n0", "n1", "n2", "t0", "t1", "t2", "b0", "b1", "b2")):
         attr[:, 3 * j:3 * j + 3] = getattr(tr, f)
@@ -106,13 +139,20 @@ def build_fused_pack(scene: Scene) -> FusedPack:
     if nl:
         lights[:, 0:13] = scene.light_pack[:nl]
         lights[:, 13] = scene.lights[:nl].to(torch.float32)  # ids < 2**24: exact
-    pack = FusedPack(tri_geo=geo, tri_attr=attr, spheres=sph, lights=lights)
+    pack = FusedPack(tri_geo=geo, tri_attr=attr, spheres=sph, lights=lights,
+                     clusters=scene.clusters)
     if pack.smem_bytes > MAX_SMEM_BYTES:
+        if pack.clusters is not None:
+            raise ValueError(
+                f"scene needs {pack.smem_bytes} bytes of shared memory for its "
+                f"{pack.clusters.num_clusters} KD cells, {s} spheres and {nl} lights; the "
+                f"fused kernel's KD variant holds at most {MAX_SMEM_BYTES} (build fewer, "
+                "larger cells: Scene.with_kd_binned(max_tris=...))")
         raise ValueError(
             f"scene needs {pack.smem_bytes} bytes of shared memory for its "
             f"{t} triangles, {s} spheres and {nl} lights; the fused kernel "
-            f"holds at most {MAX_SMEM_BYTES} (large meshes take the mesh path, "
-            "ROADMAP A7-A8)")
+            f"holds at most {MAX_SMEM_BYTES}. Build the scene's KD cells "
+            "(Scene.with_kd_binned()) to render it through the kernel's KD variant")
     return pack
 
 
@@ -139,7 +179,7 @@ def make_params(camera: Camera, cfg: IntegratorConfig, base_key, pack: FusedPack
         cam_up=vec(camera.up), cam_right=vec(camera.right), tan_x=tx, tan_y=ty,
         width=camera.width, height=camera.height, num_pix=num_pix, lanes=lanes,
         k_pix=check_lanes(lanes, num_pix), num_pix_total=npt, pix_offset=pix_offset,
-        num_tris=pack.tri_geo.shape[0], num_spheres=pack.spheres.shape[0],
+        num_tris=pack.tri_attr.shape[0], num_spheres=pack.spheres.shape[0],
         num_lights=pack.lights.shape[0], key0=k0, key1=k1,
         max_bounce=cfg.max_bounce, rr_bounce=cfg.rr_bounce,
         refract_cap=cfg.refract_cap, nee=int(cfg.nee),
@@ -179,16 +219,37 @@ def _render_fn():
     return render_fn_of(build.load_library())
 
 
+@functools.cache
+def _render_kd_fn():
+    """The KD variant's launcher `pt_bounce_render_kd`, after checking the
+    shared-memory layout this module sizes its blocks by (and, through
+    _render_fn, the struct and table layouts)."""
+    lib = build.load_library()
+    _render_fn()
+    lib.pt_bounce_kd_smem.argtypes = [ctypes.c_int] * 3
+    lib.pt_bounce_kd_smem.restype = ctypes.c_int
+    got, want = lib.pt_bounce_kd_smem(3, 2, 1), kd_smem_bytes(3, 2, 1)
+    if got != want:
+        raise RuntimeError(f"kernel library's KD variant takes {got} bytes of shared memory "
+                           f"for 3 cells, 2 spheres and 1 light; the wrapper sizes {want}")
+    fn = lib.pt_bounce_render_kd
+    fn.argtypes = [ctypes.POINTER(PtParams), ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def occupancy(pack: FusedPack) -> dict:
-    """The kernel as built and as the current card holds it with this
-    pack's shared memory: registers and local-memory bytes (stack frame and
-    spills) a thread, resident blocks and warps per SM, threads a block,
-    SMs, and the lanes of one full wave (blocks x SMs x threads)."""
+    """The pack's kernel (the KD variant for a pack with cells) as built and
+    as the current card holds it with this pack's shared memory: registers
+    and local-memory bytes (stack frame and spills) a thread, resident
+    blocks and warps per SM, threads a block, SMs, and the lanes of one full
+    wave (blocks x SMs x threads)."""
     lib = build.load_library()
     out = (ctypes.c_int * 4)()
-    lib.pt_bounce_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.pt_bounce_occupancy.restype = ctypes.c_int
-    err = lib.pt_bounce_occupancy(pack.smem_bytes, ctypes.addressof(out))
+    query = lib.pt_bounce_occupancy
+    query.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    err = query(int(pack.clusters is not None), pack.smem_bytes, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"bounce kernel occupancy query failed: cudaError {err}")
     regs, local, blocks, block = out
@@ -199,9 +260,10 @@ def occupancy(pack: FusedPack) -> dict:
 
 
 def launch(pack: FusedPack, params: PtParams):
-    """One kernel launch on the current stream: returns the film slots
-    (k_pix * lanes, 3) and the per-lane ray counts (lanes,) int64."""
-    global LAUNCHES
+    """One kernel launch on the current stream, of the KD variant if the
+    pack has cells: returns the film slots (k_pix * lanes, 3) and the
+    per-lane ray counts (lanes,) int64."""
+    global LAUNCHES, LAUNCHES_KD
     for name, x, cols in (("tri_geo", pack.tri_geo, GEO_STRIDE),
                           ("tri_attr", pack.tri_attr, ATTR_STRIDE),
                           ("spheres", pack.spheres, SPHERE_STRIDE),
@@ -210,23 +272,44 @@ def launch(pack: FusedPack, params: PtParams):
     dev = pack.tri_geo.device
     if any(x.device != dev for x in (pack.tri_attr, pack.spheres, pack.lights)):
         raise ValueError("pack tensors must share one CUDA device")
-    if pack.tri_attr.shape[0] != pack.tri_geo.shape[0]:
-        raise ValueError("tri_geo and tri_attr must have one row per triangle")
+    kd = pack.clusters
+    if pack.tri_geo.shape[0] != (0 if kd is not None else pack.tri_attr.shape[0]):
+        raise ValueError("tri_geo must have one row per triangle of tri_attr, or none "
+                         "in a pack with KD cells")
     if (params.num_tris, params.num_spheres, params.num_lights) != (
-            pack.tri_geo.shape[0], pack.spheres.shape[0], pack.lights.shape[0]):
+            pack.tri_attr.shape[0], pack.spheres.shape[0], pack.lights.shape[0]):
         raise ValueError("params do not describe this pack")
-    render_fn = _render_fn()
+    if kd is not None:
+        m, d = kd.num_clusters, kd.num_members
+        for name, x, dtype, shape in (("bmin", kd.bmin, torch.float32, (m, 3)),
+                                      ("bmax", kd.bmax, torch.float32, (m, 3)),
+                                      ("prim_start", kd.prim_start, torch.int32, (m,)),
+                                      ("prim_count", kd.prim_count, torch.int32, (m,)),
+                                      ("members", kd.members, torch.float32,
+                                       (d, kd_kernel.MEMBER_STRIDE)),
+                                      ("dup_map", kd.dup_map, torch.int32, (d,))):
+            build.check_tensor(name, x, dtype, shape, dev)
+    render_fn = _render_fn() if kd is None else _render_kd_fn()
     with torch.cuda.device(dev):
         film = torch.empty((params.k_pix * params.lanes, 3), device=dev)
         rays = torch.empty((params.lanes,), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tail = (pack.tri_attr.data_ptr(), pack.spheres.data_ptr(), pack.lights.data_ptr(),
+                film.data_ptr(), rays.data_ptr(), stream)
         with span("b1.launch", lanes=params.lanes, spp=params.total_paths // params.num_pix):
-            err = render_fn(ctypes.byref(params), pack.tri_geo.data_ptr(),
-                            pack.tri_attr.data_ptr(), pack.spheres.data_ptr(),
-                            pack.lights.data_ptr(), film.data_ptr(), rays.data_ptr(), stream)
+            if kd is None:
+                err = render_fn(ctypes.byref(params), pack.tri_geo.data_ptr(), *tail)
+            else:
+                err = render_fn(ctypes.byref(params), kd.num_clusters, kd.bmin.data_ptr(),
+                                kd.bmax.data_ptr(), kd.prim_start.data_ptr(),
+                                kd.prim_count.data_ptr(), kd.members.data_ptr(),
+                                kd.dup_map.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if kd is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_KD += 1
     return film, rays
 
 
@@ -283,7 +366,9 @@ def render_wavefront_fused(scene: Scene, camera: Camera, spp: int, base_key,
 
     Same estimator as render_wavefront; spp is chunked like
     render_wavefront_chunked (film += chunk_image * chunk_spp). On CUDA each
-    chunk is one kernel launch; on the CPU it is the plain wavefront. Only
+    chunk is one kernel launch, of the KD variant for a scene with KD cells;
+    on the CPU it is the plain wavefront (through the scene's KD search for
+    a scene with cells). Only
     cosine hemisphere sampling exists in the kernel (as in the JAX fused
     engine, whose bsdf_t has no uniform lobe): hemisphere="uniform" raises.
     The samples are [sample_offset, sample_offset + spp). pix_offset and

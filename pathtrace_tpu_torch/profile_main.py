@@ -87,8 +87,8 @@ def schedule_share(scene, camera, spp: int, base_key, cfg, lanes: int, sample_of
     iteration, one shadow ray per live hit when NEE runs); iters, each
     path's iterations; hits, the live hits (each shaded once); nee_rays;
     visible, the shadow rays that reached the sampled light; mt_ops, when
-    pair_ops(org, dirn) -> (R,) float64 is given, its sum over each live
-    lane's closest-hit ray and each live hit's shadow ray; and the useful
+    pair_ops(org, dirn, t_min, t_max) -> (R,) float64 is given, its sum over
+    each live lane's closest-hit ray and each live hit's shadow ray; and the useful
     shares of useful_share. `search` as in megakernel.default_raycast. The
     counts stay on the device until the run ends."""
     import torch
@@ -112,13 +112,13 @@ def schedule_share(scene, camera, spp: int, base_key, cfg, lanes: int, sample_of
         hit = raycast(sc, org, dirn, t_min, t_max)
         step["hit"] = hit.hit
         if pair_ops is not None:
-            step["closest"] = pair_ops(org, dirn)
+            step["closest"] = pair_ops(org, dirn, t_min, t_max)
         return hit
 
     def counted_visible(sc, org, dirn, t_min, t_max, light_tri):
         step["reached"] = visible(sc, org, dirn, t_min, t_max, light_tri)
         if pair_ops is not None:
-            step["shadow"] = pair_ops(org, dirn)
+            step["shadow"] = pair_ops(org, dirn, t_min, t_max)
         return step["reached"]
 
     def on_iteration(ray_ids, lane_iter, alive):
@@ -229,6 +229,31 @@ def mt_pair_ops(table, org, dirn):
     return torch.cat(out) if out else torch.zeros((0,), dtype=torch.float64, device=org.device)
 
 
+def kd_walk_ops(clusters, org, dirn, t_min, t_max):
+    """(R,) float64: the FP32 operations the KD walk of each ray on [t_min,
+    t_max] needs (the bounce kernel's KD variant, kernel B2): a slab test of
+    every cell, and the Möller-Trumbore stages (mt_pair_ops) over the
+    members of each cell the segment crosses no later than its hit (every
+    crossed cell on a miss), which the walk's exit cannot skip."""
+    import torch
+
+    from pathtrace_tpu_torch.accel.binned import safe_inv_dir, slab_all
+    from pathtrace_tpu_torch.ops.kd_raycast import kd_closest_plain
+
+    hit, t, _, _, _ = kd_closest_plain(clusters, org, dirn, t_min, t_max, "shadow")
+    cross, tnear = slab_all(org, safe_inv_dir(dirn), clusters.bmin, clusters.bmax, t_min, t_max)
+    need = cross & (tnear <= torch.where(hit, t, torch.full_like(t, float("inf")))[:, None])
+    ops = torch.full((org.shape[0],), float(clusters.num_clusters * SLAB_OPS),
+                     dtype=torch.float64, device=org.device)
+    for m, (start, count) in enumerate(zip(clusters.prim_start.tolist(),
+                                           clusters.prim_count.tolist())):
+        rays = need[:, m].nonzero()[:, 0]
+        if rays.numel() and count:
+            ops.index_add_(0, rays, mt_pair_ops(clusters.members[start:start + count],
+                                                org[rays], dirn[rays]))
+    return ops
+
+
 def tensor_bytes(obj) -> int:
     """Bytes of every tensor in a (nested) dataclass."""
     import dataclasses
@@ -244,7 +269,8 @@ def tensor_bytes(obj) -> int:
 def b1_ops(scene, need: dict) -> float:
     """The bounce kernel's FP32 operations on the paths that schedule_share
     counted (`need`, with pair_ops = mt_pair_ops over the scene's search
-    table): the Möller-Trumbore stages each ray needs, a sphere test per
+    table, or kd_walk_ops over its KD cells for the KD variant): the
+    Möller-Trumbore stages (and slab tests) each ray needs, a sphere test per
     ray and sphere, one shading per hit, and NEE's BSDF term per shadow ray
     that reached the light."""
     return (need["mt_ops"] + need["rays"] * scene.num_spheres * SPHERE_OPS

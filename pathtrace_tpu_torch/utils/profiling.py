@@ -26,7 +26,9 @@ The spans, by layer (PERF.md names the metric that reads each):
   b3.launch around the kernels' calls;
 - train step: train.step (root), train.record (the recording sweep),
   train.replay holding train.sort and replay.chunk (depth, paths), which
-  holds replay.forward and replay.backward.
+  holds replay.forward and replay.backward;
+- a render's output: io.png (io/image.py::write_png) and io.checkpoint
+  (io/checkpoint.py::save_state), roots where `cli render` writes a pass.
 """
 
 from __future__ import annotations

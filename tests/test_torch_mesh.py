@@ -273,11 +273,16 @@ def test_cli_renders_mesh_preset_on_cpu(tmp_path):
 
 
 def test_fused_kernel_rejects_mesh_preset():
-    """The fused engine's bounce kernel holds the triangle table in shared
-    memory; mesh512's 82k triangles exceed it, so `cli render --engine
-    fused` on the card keeps raising (on the CPU the fused entry runs the
-    plain wavefront, which takes the KD cells)."""
+    """The fused engine's shared-memory kernel holds the triangle table in
+    shared memory; mesh512's 82k triangles exceed it, so without KD cells
+    the pack is refused with the advice to build them. The preset builds
+    them, and its pack takes the kernel's KD variant (on the CPU the fused
+    entry runs the plain wavefront, which takes the KD cells too)."""
     from pathtrace_tpu_torch.ops.cuda import bounce_kernel as bk
-    scene = presets.build_preset_scene(presets.get_preset("mesh512"))
-    with pytest.raises(ValueError, match="shared memory"):
-        bk.build_fused_pack(scene)
+    preset = presets.get_preset("mesh512")
+    with pytest.raises(ValueError, match=r"shared memory.*with_kd_binned"):
+        bk.build_fused_pack(preset.build_scene())
+    scene = presets.build_preset_scene(preset)
+    pack = bk.build_fused_pack(scene)
+    assert pack.clusters is scene.clusters
+    assert pack.smem_bytes <= bk.MAX_SMEM_BYTES

@@ -62,7 +62,7 @@ def test_schedule_share_counts_the_plain_rays(scene_name, nee, lanes):
     # a pair_ops of one a ray counts the traced rays again
     share = profile_main.schedule_share(
         scene, cam, 4, key, cfg, lanes,
-        pair_ops=lambda org, dirn: torch.ones(org.shape[0], dtype=torch.float64))
+        pair_ops=lambda org, dirn, *_: torch.ones(org.shape[0], dtype=torch.float64))
     assert torch.equal(share["image"], img)
     assert share["rays"] == rays
     iters = share["iters"]

@@ -68,7 +68,7 @@ def launch_bound(scene, camera, key, cfg, lanes: int, chunk_spp: int) -> dict:
 
     table = scene.tris.search_table
     need = schedule_share(scene, camera, 1, key, cfg, lanes, search=mt.mt_closest_plain,
-                          pair_ops=lambda org, dirn: mt_pair_ops(table, org, dirn))
+                          pair_ops=lambda org, dirn, *_: mt_pair_ops(table, org, dirn))
     ops = b1_ops(scene, need)
     ms, by = bound(ops * chunk_spp, tensor_bytes(scene) + 12 * camera.width * camera.height)
     return {"bound_ms_a_launch": ms, "bound_by": by, "operations_a_sample": ops,
