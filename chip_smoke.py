@@ -133,12 +133,16 @@ benchmarks). Phases, one line each (or one per comparison):
      refscene_blob82k (blob82k, the room, two boxes, the metal and the glass
      sphere; KD cells of 1024): at 256x256 @ 4 spp and 65,536 lanes against
      the wavefront through kd_closest_plain, image and every lane's rays
-     bit-equal, the plain version timed without its count; the variant at
-     256x256 @ 32 spp in one launch, its launches counted (ms, paths/s)
-     beside its bound (the 4-spp count of profile_main.kd_walk_ops and
-     b1_ops, times 8); its registers, local memory and resident warps per
-     SM; then `cli render --preset mesh512 --engine fused` at 64x64 @ 4 spp
-     as a subprocess.
+     bit-equal, the plain version timed without its count; at 1 spp the
+     member rows its walks tested (the rows they fetched) equal to
+     kd_raycast.kd_walk_counts' tests on the plain wavefront's rays, printed
+     a ray; the variant at 256x256 @ 32 spp in one launch, its launches
+     counted (ms, paths/s) beside its bound (the 4-spp count of
+     profile_main.kd_walk_ops and b1_ops, times 8); its registers, local
+     memory, resident warps per SM and shared memory a block; then `cli
+     render --preset mesh512 --engine fused` at 64x64 @ 4 spp as a
+     subprocess. tools/torch_bounce_ab.py's `kd` job times the variant's
+     launch at 256x256 @ 32 spp against another build's, in turns.
 
 Phases 3 and 4 hold the fused kernel against the wavefront through the
 plain searches only. It then prints the card line, a JSON line describing
@@ -1268,7 +1272,7 @@ def fused_kd_phase(smi: str) -> dict:
     # count that gives the bound's work at 4 spp
     bk.LAUNCHES = bk.LAUNCHES_KD = 0
     (k_img, k_rays), k4_ms = timed(lambda: bk.fused_chunk(pack, cam, 4, 0, key, cfg, lanes))
-    _, lane_rays = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, 4, 0))
+    _, lane_rays, _ = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, 4, 0))
     (p_img, p_rays), p4_ms = timed(lambda: render_wavefront_stats(
         mesh, cam, 4, key, cfg, lanes=lanes, device="cuda", search=kd.kd_closest_plain))
     need = schedule_share(
@@ -1285,6 +1289,20 @@ def fused_kd_phase(smi: str) -> dict:
         fail("the KD variant is not bit-equal to the wavefront through kd_closest_plain")
     if bk.LAUNCHES != 0 or bk.LAUNCHES_KD != 2:
         fail("a scene with KD cells did not take the KD variant")
+
+    # the member rows the variant's walks test at 1 spp, against the walk
+    # rules' tests of each live closest-hit ray and each live hit's shadow
+    # ray of the plain wavefront
+    _, _, rows = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, 1, 0))
+    walked = schedule_share(
+        mesh, cam, 1, key, cfg, lanes, search=kd.kd_closest_plain,
+        pair_ops=lambda org, dirn, t_min, t_max: kd.kd_walk_counts(
+            cl, org, dirn, t_min, t_max)["tests"].double())
+    tested, rule = int(rows.sum()), int(walked["mt_ops"])
+    print(f"[10 fused kd] 256x256@1spp: member rows tested {tested} "
+          f"({tested / walked['rays']:.2f} a ray), the walk rules' {rule}", flush=True)
+    if tested != rule or rule <= 0:
+        fail(f"the KD variant tested {tested} member rows; the walk rules test {rule}")
 
     # the variant at 32 spp in one launch, beside its bound: the 4-spp
     # count's operations times 8; bytes: the KD tables and the film, once
@@ -1318,6 +1336,7 @@ def fused_kd_phase(smi: str) -> dict:
             "replaces": "pathtrace_tpu/ops/pallas/bounce_kernel.py:411 on scenes with KD cells",
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": p4_ms,
             "plain_shape": f"256x256@4spp, where the variant took {k4_ms:.3f} ms",
+            "rows_tested_a_ray": tested / walked["rays"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 

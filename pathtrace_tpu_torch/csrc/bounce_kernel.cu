@@ -67,14 +67,22 @@
 // kd_closest_plain. Both kernels run one path step (shade_hit, light_sample,
 // nee_term, scatter, start_path, commit). The variant keeps the cell table,
 // the spheres and the lights in shared memory and reads the member rows
-// from global memory (L2). Its searches are kernel B2's walk (kd_walk.cuh),
-// in which one warp walks one ray, measured faster than one thread a ray
+// from global memory (L2). Its searches walk the cells as kernel B2 does
+// (kd_walk.cuh), one warp a ray, measured faster than one thread a ray
 // (PERF.md): each warp walks its lanes' closest-hit rays one after another,
 // then their shadow rays, so its lanes stay in the loop until all of them
 // are done. Caps at 96 and 80 registers (20 and 24 warps an SM) ran no
 // faster, within the noise of three rounds: 65,536 lanes are fewer than
 // four blocks an SM, so the lanes, not the registers, bound the warps in
 // flight.
+// What bounds the variant on this card is the L2 round trip of each member
+// row. At about 16 warps an SM the round trips are poorly hidden, and the
+// launch is one wave whose warps differ several-fold in work: those whose
+// rays cross the mesh's dense cells finish last, nearly alone on their SMs,
+// testing one row a lane per round trip. So the variant walks with the
+// walk's pipelined member loop, which loads each lane's next row while it
+// tests the current one (kd_walk.cuh), at 128 registers, still four blocks
+// an SM; kernel B2 keeps the plain loop, which its 40 warps an SM hide.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false (no fast math: IEEE division, sqrt and denormals), so the
@@ -473,19 +481,22 @@ struct KdTables {
 };
 
 // What a warp walks: the cell table in shared memory, the warp's list of
-// crossed cells there, the member rows and ids in global memory.
+// crossed cells and its lanes' row counts there, the member rows and ids in
+// global memory.
 struct KdWalk {
   const float* cells;
   int num_cells;
   float2* list;
+  long long* rows;  // lane i's member rows tested at [i]
   const float* members;
   const int* ids;
 };
 
 // The closest triangle of each lane's ray on [tmin, tmax] that `want`s one,
 // over the KD cells: the warp walks the rays one after another, each with
-// all its 32 lanes (kd_walk.cuh, kernel B2's walk), so every lane of the
-// warp must call it. A lane that wants none gets a miss.
+// all its 32 lanes (kd_walk.cuh, with the pipelined member loop), so every
+// lane of the warp must call it. A lane that wants none gets a miss; the
+// lane whose ray was walked adds the rows its walk tested to its count.
 template <bool CLOSEST>
 __device__ __forceinline__ TriHit warp_closest(int wl, bool want, V3 org, V3 dir, float tmin,
                                                float tmax, const KdWalk& kd) {
@@ -503,7 +514,9 @@ __device__ __forceinline__ TriHit warp_closest(int wl, bool want, V3 org, V3 dir
     ray.lo = __shfl_sync(FULL, tmin, src);
     ray.hi = __shfl_sync(FULL, tmax, src);
     Best b = {INFINITY, 0.0f, 0.0f, INT_MAX};
-    walk(wl, kd.cells, kd.num_cells, kd.list, ray, kd.members, kd.ids, CLOSEST, b);
+    const int rows = walk<true>(wl, kd.cells, kd.num_cells, kd.list, ray, kd.members, kd.ids,
+                                CLOSEST, b);
+    if (wl == src) kd.rows[wl] += rows;
     if (wl == src && b.id != INT_MAX) out = {b.t, b.u, b.v, b.id, true};
   }
   return out;
@@ -513,15 +526,19 @@ __device__ __forceinline__ TriHit warp_closest(int wl, bool want, V3 org, V3 dir
 // draws, shading and film, for scenes whose triangles exceed shared memory.
 // The block keeps the cell table, the spheres, the lights and one list of
 // crossed cells a warp in shared memory; the member rows and the shading rows
-// stay in global memory (L2). The walk is B2's, one warp a ray, so the lanes
-// of a warp stay in the loop until all of them are done and meet at each
-// search: first every live lane's closest-hit ray, then the shadow ray of
-// every lane that shades a hit with NEE.
+// stay in global memory (L2). One warp walks one ray, so the lanes of a warp
+// stay in the loop until all of them are done and meet at each search: first
+// every live lane's closest-hit ray, then the shadow ray of every lane that
+// shades a hit with NEE. The walk keeps member rows in flight while the
+// lanes test others (kd_walk.cuh). rays_out is (2, P.lanes): each lane's
+// rays traced, then the member rows its walks tested (which are the rows
+// they fetched), counted in shared memory.
 __global__ void __launch_bounds__(BLOCK)
     bounce_kernel_kd(PtParams P, KdTables K, const float* __restrict__ tri_attr,
                      const float* __restrict__ spheres, const float* __restrict__ lights,
                      float* __restrict__ film, long long* __restrict__ rays_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float kd_shared[];
+  float* smem = kd_shared;
   const int n_sph = P.num_spheres * SPHERE_STRIDE;
   const int n_li = P.num_lights * LIGHT_STRIDE;
   float* sph = smem + K.num_cells * CELL_FLOATS;
@@ -529,9 +546,12 @@ __global__ void __launch_bounds__(BLOCK)
     sph[j] = j < n_sph ? spheres[j] : lights[j - n_sph];
   load_cells(smem, K.num_cells, K.bmin, K.bmax, K.start, K.count);  // and the barrier
   const float* li = sph + n_sph;
-  const int wl = threadIdx.x & 31;
-  const KdWalk kd = {smem, K.num_cells, (float2*)(sph + n_sph + n_li) + (threadIdx.x >> 5) * LIST_CAP,
-                     K.members, K.ids};
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float2* lists = (float2*)(sph + n_sph + n_li);
+  long long* rows = (long long*)(lists + LIST_CAP * (BLOCK / 32));  // 8-B aligned: kd_smem
+  const KdWalk kd = {smem, K.num_cells, lists + warp * LIST_CAP, rows + warp * 32, K.members,
+                     K.ids};
+  rows[threadIdx.x] = 0;  // this thread's own
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < P.lanes;  // a thread past the lanes stays for the walks
@@ -585,15 +605,20 @@ __global__ void __launch_bounds__(BLOCK)
       }
     }
   }
-  if (valid) rays_out[lane] = rays;
+  if (valid) {
+    rays_out[lane] = rays;
+    rays_out[P.lanes + lane] = rows[threadIdx.x];
+  }
 }
 
 // Dynamic shared memory of a KD variant block: the cells, the spheres, the
-// lights and the warps' lists.
+// lights, the warps' lists and each thread's row count.
 __host__ inline size_t kd_smem(int num_cells, int num_spheres, int num_lights) {
+  static_assert(CELL_FLOATS % 2 == 0 && SPHERE_STRIDE % 2 == 0 && LIGHT_STRIDE % 2 == 0,
+                "the row counts after the lists are 8-B aligned");
   return sizeof(float) * ((size_t)num_cells * CELL_FLOATS + (size_t)num_spheres * SPHERE_STRIDE +
                           (size_t)num_lights * LIGHT_STRIDE) +
-         sizeof(float2) * LIST_CAP * (BLOCK / 32);
+         sizeof(float2) * LIST_CAP * (BLOCK / 32) + sizeof(long long) * BLOCK;
 }
 
 }  // namespace pt
@@ -647,7 +672,8 @@ extern "C" int pt_bounce_strides(int* out4) {
 }
 
 // The KD variant's launch on `stream`, as pt_bounce_render's, with the KD
-// tables of ops/kd_raycast.py in place of the search table.
+// tables of ops/kd_raycast.py in place of the search table; `rays` holds
+// 2 * lanes: the rays, then the member rows tested, of each lane.
 extern "C" int pt_bounce_render_kd(const PtParams* params, int num_cells, const float* bmin,
                                    const float* bmax, const int* start, const int* count,
                                    const float* members, const int* ids, const float* tri_attr,

@@ -17,6 +17,13 @@
 // ray that crosses more than LIST_CAP cells keeps the least cell beyond its
 // list aside and lists again after it has visited that cell.
 //
+// `walk` has two member loops, chosen at compile time. Kernel B2 takes the
+// plain one, a row a lane at a time; the bounce kernel's variant takes the
+// pipelined one (test_rows, below), with each lane's next member row in
+// flight while it tests the current one, since the variant's ~16 warps an
+// SM leave the L2 round trip of each row exposed. B2's 40 warps an SM hide
+// that latency, so B2 keeps the plain loop.
+//
 // Every function here is called by all 32 lanes of a warp together.
 #pragma once
 
@@ -144,11 +151,61 @@ __device__ __forceinline__ int build_list(int lane, const float* cells, int num_
   return min(n, LIST_CAP);
 }
 
+// ---- the pipelined member loop of the bounce kernel's KD variant ----------
+//
+// What bounds the variant on this card is neither the FP32 rate nor device
+// memory (the member rows, 3.4 MB for the bunny scene, stay in L2) but the
+// L2 round trip of each row. Its 65,536 lanes are one wave of about 16
+// warps an SM, and the warps whose rays cross the mesh's dense cells run
+// several times longer than the rest, at the end nearly alone on their SMs,
+// where no other warp hides their latency. In the plain loop a lane loads
+// its next row only after testing its last one, so a warp waits out a
+// whole round trip for every 32 rows. test_rows loads a lane's next row
+// before it tests the current one, so that the test and the next round
+// trip overlap. Nine more registers a lane hold it, and the variant stays
+// at 128, within its 4 blocks an SM; three or four rows a lane spilled and
+// ran no faster.
+//
+// Kernel B2 keeps the plain loop: it runs 40 warps an SM, over many waves,
+// so occupancy hides its latency, and the registers would cost it warps.
+// Both loops test the same rows against the same running best, and the
+// (t, id) winner does not depend on the order, so both give the same bits.
+
+// A member row [v0 e1 e2] into registers.
+__device__ __forceinline__ void load_row(float* g, const float* members, int j) {
+  const float* p = members + (long long)j * MEMBER_STRIDE;
+#pragma unroll
+  for (int k = 0; k < MEMBER_STRIDE; ++k) g[k] = p[k];
+}
+
+// The member loop over the cell's slots [s, end): lane l tests slots
+// s + l, s + l + 32, ..., each with the lane's next slot in flight. The
+// `j + TEAM < end` guard fetches no row past the cell's end, so the loop
+// fetches exactly the rows it tests.
+__device__ __forceinline__ void test_rows(int lane, int s, int end, const Ray& ray,
+                                          const float* members, const int* ids, bool closest,
+                                          Best& b) {
+  float g[MEMBER_STRIDE], next[MEMBER_STRIDE];
+  int j = s + lane;
+  if (j < end) load_row(g, members, j);
+  for (; j < end; j += TEAM) {
+    if (j + TEAM < end) load_row(next, members, j + TEAM);
+    test_row(ray, g, j, ids, closest, b);
+#pragma unroll
+    for (int k = 0; k < MEMBER_STRIDE; ++k) g[k] = next[k];
+  }
+}
+
 // Walks the ray's crossed cells in ascending (tnear, cell) order under the
-// exit rule into b (the same in every lane of the warp).
-__device__ __forceinline__ void walk(int lane, const float* cells, int num_cells, float2* list,
-                                     const Ray& ray, const float* members, const int* ids,
-                                     bool closest, Best& b) {
+// exit rule into b (the same in every lane of the warp), with the plain
+// member loop, or test_rows if PIPELINED. Returns the member rows tested,
+// the same in every lane: a cell's rows are fetched only once the exit rule
+// has let the walk into the cell, so these are also the rows fetched.
+template <bool PIPELINED = false>
+__device__ __forceinline__ int walk(int lane, const float* cells, int num_cells, float2* list,
+                                    const Ray& ray, const float* members, const int* ids,
+                                    bool closest, Best& b) {
+  int tested = 0;
   float ctn = -INFINITY, dtn;  // the cursor: the last cell visited
   int cc = -1, dc;
   int n = build_list(lane, cells, num_cells, ray, ctn, cc, list, dtn, dc);
@@ -166,12 +223,18 @@ __device__ __forceinline__ void walk(int lane, const float* cells, int num_cells
     if (nc == INT_MAX || ntn > reach(b.t)) break;
     const float* cell = cells + nc * CELL_FLOATS;
     const int s = __float_as_int(cell[6]), cnt = __float_as_int(cell[7]);
-    for (int j = s + lane; j < s + cnt; j += TEAM)
-      test_row(ray, members + (long long)j * MEMBER_STRIDE, j, ids, closest, b);
+    if constexpr (PIPELINED) {
+      test_rows(lane, s, s + cnt, ray, members, ids, closest, b);
+    } else {
+      for (int j = s + lane; j < s + cnt; j += TEAM)
+        test_row(ray, members + (long long)j * MEMBER_STRIDE, j, ids, closest, b);
+    }
+    tested += cnt;
     warp_min_best(b);
     ctn = ntn, cc = nc;
     if (set_aside) n = build_list(lane, cells, num_cells, ray, ctn, cc, list, dtn, dc);
   }
+  return tested;
 }
 
 // The block's cell table at the start of its shared memory, loaded by all

@@ -55,11 +55,11 @@ BLOCK = 128
 
 def kd_smem_bytes(num_cells: int, num_spheres: int, num_lights: int) -> int:
     """The KD variant's shared memory a block: the cells (kernel B2's
-    records), the spheres, the lights, and one list of crossed cells a warp
-    (8 B an entry)."""
+    records), the spheres, the lights, one list of crossed cells a warp (8 B
+    an entry) and each thread's count of member rows (int64)."""
     return (kd_kernel.CELL_SMEM_BYTES * num_cells
             + 4 * (SPHERE_STRIDE * num_spheres + LIGHT_STRIDE * num_lights)
-            + 8 * kd_kernel.LIST_CAP * (BLOCK // 32))
+            + 8 * kd_kernel.LIST_CAP * (BLOCK // 32) + 8 * BLOCK)
 
 
 class PtParams(ctypes.Structure):
@@ -219,23 +219,28 @@ def _render_fn():
     return render_fn_of(build.load_library())
 
 
+def render_kd_fn_of(lib: ctypes.CDLL):
+    """The KD variant's launcher `pt_bounce_render_kd` of a built kernel
+    library, after checking its struct and table layouts (render_fn_of)."""
+    render_fn_of(lib)
+    fn = lib.pt_bounce_render_kd
+    fn.argtypes = [ctypes.POINTER(PtParams), ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _render_kd_fn():
-    """The KD variant's launcher `pt_bounce_render_kd`, after checking the
-    shared-memory layout this module sizes its blocks by (and, through
-    _render_fn, the struct and table layouts)."""
+    """This package's KD launcher, after checking the shared-memory layout
+    this module sizes its blocks by."""
     lib = build.load_library()
-    _render_fn()
     lib.pt_bounce_kd_smem.argtypes = [ctypes.c_int] * 3
     lib.pt_bounce_kd_smem.restype = ctypes.c_int
     got, want = lib.pt_bounce_kd_smem(3, 2, 1), kd_smem_bytes(3, 2, 1)
     if got != want:
         raise RuntimeError(f"kernel library's KD variant takes {got} bytes of shared memory "
                            f"for 3 cells, 2 spheres and 1 light; the wrapper sizes {want}")
-    fn = lib.pt_bounce_render_kd
-    fn.argtypes = [ctypes.POINTER(PtParams), ctypes.c_int] + [ctypes.c_void_p] * 12
-    fn.restype = ctypes.c_int
-    return fn
+    return render_kd_fn_of(lib)
 
 
 def occupancy(pack: FusedPack) -> dict:
@@ -261,8 +266,10 @@ def occupancy(pack: FusedPack) -> dict:
 
 def launch(pack: FusedPack, params: PtParams):
     """One kernel launch on the current stream, of the KD variant if the
-    pack has cells: returns the film slots (k_pix * lanes, 3) and the
-    per-lane ray counts (lanes,) int64."""
+    pack has cells: returns the film slots (k_pix * lanes, 3), the per-lane
+    ray counts (lanes,) int64 and, for the KD variant, the member rows each
+    lane's walks tested, (lanes,) int64, which are the rows they fetched
+    (None for the shared-memory kernel)."""
     global LAUNCHES, LAUNCHES_KD
     for name, x, cols in (("tri_geo", pack.tri_geo, GEO_STRIDE),
                           ("tri_attr", pack.tri_attr, ATTR_STRIDE),
@@ -292,10 +299,12 @@ def launch(pack: FusedPack, params: PtParams):
     render_fn = _render_fn() if kd is None else _render_kd_fn()
     with torch.cuda.device(dev):
         film = torch.empty((params.k_pix * params.lanes, 3), device=dev)
-        rays = torch.empty((params.lanes,), dtype=torch.int64, device=dev)
+        # the KD variant writes each lane's rays, then its member rows tested
+        counts = torch.empty((1 if kd is None else 2, params.lanes), dtype=torch.int64,
+                             device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         tail = (pack.tri_attr.data_ptr(), pack.spheres.data_ptr(), pack.lights.data_ptr(),
-                film.data_ptr(), rays.data_ptr(), stream)
+                film.data_ptr(), counts.data_ptr(), stream)
         with span("b1.launch", lanes=params.lanes, spp=params.total_paths // params.num_pix):
             if kd is None:
                 err = render_fn(ctypes.byref(params), pack.tri_geo.data_ptr(), *tail)
@@ -310,7 +319,7 @@ def launch(pack: FusedPack, params: PtParams):
         LAUNCHES += 1
     else:
         LAUNCHES_KD += 1
-    return film, rays
+    return film, counts[0], None if kd is None else counts[1]
 
 
 def fused_chunk(pack: FusedPack, camera: Camera, spp: int, sample_offset: int, base_key,
@@ -326,12 +335,12 @@ def fused_chunk(pack: FusedPack, camera: Camera, spp: int, sample_offset: int, b
     num_pix = params.num_pix
     rng.check_path_ids(params.num_pix_total, spp, sample_offset)
     if launch_events is None:
-        film, rays = launch(pack, params)
+        film, rays, _ = launch(pack, params)
     else:
         stream = torch.cuda.current_stream(pack.tri_geo.device)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(stream)
-        film, rays = launch(pack, params)
+        film, rays, _ = launch(pack, params)
         end.record(stream)
         launch_events.append((start, end))
     # film slot k*lanes + i belongs to pixel (i + k*lanes) % num_pix

@@ -24,12 +24,17 @@ On the card (marker `gpu`; python -m pytest tests/test_torch_fused_kd.py
 through kd_closest_plain (image, the rays of every lane, their sum) on
 refscene_blob82k and on blob82k_room, also where the next strided path id
 passes 2**31 and on pixel slices, and through render_wavefront_fused and
-`cli render --preset mesh512 --engine fused`; the shared-memory kernel,
-which shares the variant's path step, still at 16 warps per SM within
-its 108 registers and 32 B of stack.
+`cli render --preset mesh512 --engine fused`; its pipelined walk bit-equal
+to the plain KD wavefront on refscene, mesh512, a row of 80 cells (walks
+past the warp's list) and lanes that leave threads of a block idle, its
+row counts equal to kd_walk_counts' on the plain wavefront's rays; the
+shared-memory kernel, which shares the variant's path step, still at 16
+warps per SM within its 108 registers and 32 B of stack, and the variant
+at 16 warps per SM within 128 registers.
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import types
@@ -150,6 +155,45 @@ def test_the_fused_engine_sends_kd_scenes_to_the_variant(fake_launchers):
     assert args[2:8] == tuple(x.data_ptr() for x in (cl.bmin, cl.bmax, cl.prim_start,
                                                     cl.prim_count, cl.members, cl.dup_map))
     assert args[8] == packs[kd].tri_attr.data_ptr()
+    # the tail as the shared-memory kernel's: tri_attr, spheres, lights,
+    # film, the per-lane counts and the stream
+    assert len(args) == 14
+
+
+class _CountWriter(_Recorder):
+    """A launcher stand-in that writes 1000 + i at slot i of the int64
+    counts it is given (the second-to-last argument), as many as `slots`."""
+
+    def __init__(self, slots):
+        super().__init__()
+        self.slots = slots
+
+    def __call__(self, *args):
+        counts = (ctypes.c_int64 * self.slots).from_address(args[-2])
+        counts[:] = range(1000, 1000 + self.slots)
+        return super().__call__(*args)
+
+
+def test_the_variant_returns_row_counts_beside_the_rays(fake_launchers, monkeypatch):
+    """launch hands the KD variant one int64 buffer of 2 x lanes and returns
+    its first row as the lanes' rays and its second as their member rows
+    tested; the shared-memory kernel gets one row and returns no rows."""
+    lanes = 64
+    cam = procedural.default_camera(8, 8)
+    mesh = bk.build_fused_pack(
+        procedural.sphere_mesh_scene(subdivisions=3).with_kd_binned(max_tris=128))
+    monkeypatch.setattr(bk, "_render_kd_fn", lambda: _CountWriter(2 * lanes))
+    params = bk.make_params(cam, IntegratorConfig(), rng.make_key(0), mesh, lanes, 1, 0)
+    film, rays, rows = bk.launch(mesh, params)
+    assert film.shape == (lanes, 3) and rays.shape == rows.shape == (lanes,)
+    assert rays.dtype == rows.dtype == torch.int64
+    assert rays.tolist() == list(range(1000, 1000 + lanes))
+    assert rows.tolist() == list(range(1000 + lanes, 1000 + 2 * lanes))
+    cornell = bk.build_fused_pack(procedural.cornell_box_scene(include_spheres=True))
+    monkeypatch.setattr(bk, "_render_fn", lambda: _CountWriter(lanes))
+    params = bk.make_params(cam, IntegratorConfig(), rng.make_key(0), cornell, lanes, 1, 0)
+    _, rays, rows = bk.launch(cornell, params)
+    assert rows is None and rays.tolist() == list(range(1000, 1000 + lanes))
 
 
 def test_kd_pack_sizes_its_shared_memory_by_the_cells():
@@ -162,8 +206,9 @@ def test_kd_pack_sizes_its_shared_memory_by_the_cells():
     assert pack.tri_attr.shape == (scene.num_tris, bk.ATTR_STRIDE)
     m = pack.clusters.num_clusters
     assert pack.smem_bytes == bk.kd_smem_bytes(m, scene.num_spheres, scene.num_lights)
+    # and each thread's row count of the pipelined walk
     assert pack.smem_bytes == (32 * m + 64 * (scene.num_spheres + scene.num_lights)
-                               + 8 * 32 * (bk.BLOCK // 32))
+                               + 8 * 32 * (bk.BLOCK // 32) + 8 * bk.BLOCK)
     assert pack.smem_bytes <= bk.MAX_SMEM_BYTES
 
 
@@ -306,7 +351,7 @@ def test_kd_variant_bit_equal_to_the_plain_kd_wavefront(cuda, case):
     pack = bk.build_fused_pack(scene)
     launches = bk.LAUNCHES, bk.LAUNCHES_KD
     img, rays = bk.fused_chunk(pack, cam, spp, offset, key, cfg, lanes)
-    _, lane_rays = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, spp, offset))
+    _, lane_rays, _ = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, spp, offset))
     torch.cuda.synchronize()
     assert (bk.LAUNCHES, bk.LAUNCHES_KD) == (launches[0], launches[1] + 2)
     plain = profile_main.schedule_share(scene, cam, spp, key, cfg, lanes, offset,
@@ -341,6 +386,77 @@ def test_kd_variant_slices_and_render_bit_equal(cuda):
         assert torch.equal(s_img, q_img) and s_rays == q_rays, f"slice {shard}"
 
 
+def _walk_scene(name: str, cuda):
+    """(scene, camera, config) of a WALK_CASES scene on the card."""
+    if name == "refscene":
+        scene, config = _card_scene("refscene_blob82k", cuda)
+        return scene, lambda w, h: program.port_camera(config, w, h), program.port_config(config)
+    if name == "mesh512":
+        from pathtrace_tpu_torch.models import presets
+
+        preset = presets.get_preset("mesh512")
+        scene = presets.build_preset_scene(preset).to(cuda)
+        return scene, procedural.default_camera, preset.cfg or IntegratorConfig()
+    # 80 cells in a row along +x (listed farthest first), seen down the row
+    # through a 0.5-degree field: every camera ray crosses more cells than
+    # a warp lists, so its walk sets cells aside and lists again
+    from pathtrace_tpu_torch.core.camera import Camera
+    from torch_port_helpers import cell_row_scene
+
+    scene, _ = cell_row_scene(80)
+    return (scene.to(cuda),
+            lambda w, h: Camera.look_at((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), fovy_deg=0.5,
+                                        width=w, height=h),
+            IntegratorConfig())
+
+
+# name: (scene, film side, spp, lanes); lanes 100 leave 28 threads of the
+# one block past the lanes, which stay for the walks
+WALK_CASES = {
+    "refscene": ("refscene", 32, 2, 1024),
+    "refscene_lanes_past_the_block": ("refscene", 10, 4, 100),
+    "mesh512": ("mesh512", 32, 2, 1024),
+    "set_aside_cells": ("cell_row", 16, 2, 256),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_pipelined_walk_bit_equal_to_the_plain_kd_wavefront(cuda, case):
+    """The variant's pipelined walk against the plain KD wavefront (image
+    and every lane's rays bit-equal); its row counts against kd_walk_counts
+    on the plain wavefront's own rays: it tests the member rows of the
+    cells the walk rules visit, no more and no fewer."""
+    from pathtrace_tpu_torch import profile_main
+    from pathtrace_tpu_torch.ops import kd_raycast as kd
+
+    name, side, spp, lanes = WALK_CASES[case]
+    scene, camera, cfg = _walk_scene(name, cuda)
+    cam, key = camera(side, side), rng.make_key(11)
+    pack = bk.build_fused_pack(scene)
+    cl = pack.clusters
+    # cells whose members do not fill whole rounds of the warp's rows
+    assert bool((cl.prim_count % 64 != 0).any())
+    params = bk.make_params(cam, cfg, key, pack, lanes, spp, 0)
+    _, rays, rows = bk.launch(pack, params)
+    torch.cuda.synchronize()
+    assert rows.shape == (lanes,) and rows.dtype == torch.int64
+    crossed = []
+
+    def tests(org, dirn, t_min, t_max):
+        c = kd.kd_walk_counts(cl, org, dirn, t_min, t_max)
+        crossed.append(int(c["crossed"].max()))
+        return c["tests"].double()
+
+    plain = profile_main.schedule_share(scene, cam, spp, key, cfg, lanes,
+                                        search=kd.kd_closest_plain, pair_ops=tests)
+    img, _ = bk.fused_chunk(pack, cam, spp, 0, key, cfg, lanes)
+    assert torch.equal(img, plain["image"]) and torch.equal(rays, plain["lane_rays"])
+    assert int(rows.sum()) == int(plain["mt_ops"]) > 0 and bool((rows >= 0).all())
+    if name == "cell_row":
+        assert max(crossed) > bk.kd_kernel.LIST_CAP
+
+
 @pytest.mark.gpu
 def test_shared_memory_kernel_keeps_its_registers(cuda):
     """The shared-memory kernel, whose path step the KD variant shares,
@@ -352,8 +468,10 @@ def test_shared_memory_kernel_keeps_its_registers(cuda):
     assert occ["warps_per_sm"] == 16
     assert occ["registers"] <= 108 and occ["local_bytes"] <= 32
     mesh = procedural.sphere_mesh_scene(subdivisions=4).with_kd_binned(max_tris=128).to(cuda)
+    # the KD variant keeps the 16 warps per SM that 65,536 lanes fill (3.9
+    # blocks of 128 on 132 SMs)
     kd = bk.occupancy(bk.build_fused_pack(mesh))
-    assert kd["blocks_per_sm"] >= 1 and kd["local_bytes"] >= 0
+    assert kd["warps_per_sm"] >= 16 and kd["registers"] <= 128
 
 
 @pytest.mark.gpu

@@ -350,7 +350,7 @@ def test_kernel_bit_equal_to_plain(cuda, case):
     pack = bk.build_fused_pack(scene)
     launches = bk.LAUNCHES
     img, rays = bk.fused_chunk(pack, cam, spp, offset, key, cfg, lanes)
-    _, lane_rays = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, spp, offset))
+    _, lane_rays, _ = bk.launch(pack, bk.make_params(cam, cfg, key, pack, lanes, spp, offset))
     torch.cuda.synchronize()
     assert bk.LAUNCHES == launches + 2
     plain = profile_main.schedule_share(scene, cam, spp, key, cfg, lanes, offset,

@@ -20,7 +20,13 @@ Jobs:
 - cornell: the main path, Cornell + spheres 256x256 @ 1024 spp in 4
   launches of 256 spp (the call `cli render --engine fused` makes), host
   wall clock around a synchronized render;
-- glass: glass_scene() at the same shape.
+- glass: glass_scene() at the same shape;
+- kd: one launch of the KD variant at 256x256 @ 32 spp on the benchmark's
+  refscene_blob82k, KD cells of 1024 (chip_smoke.py phase 10's shape), CUDA
+  events around the launch. A variant's pt_bounce_render_kd takes the
+  arguments of this package's.
+
+--jobs picks among them (all four by default).
 
 Every configuration is warmed up once, then each job runs --runs times,
 the configurations in turns (forward on even runs, backward on odd ones:
@@ -43,7 +49,8 @@ import statistics
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def build_variant(name: str, src_dir: str) -> str:
@@ -93,6 +100,7 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", action="append", required=True, metavar="NAME=DIR")
     ap.add_argument("--lanes", default="65536", help="comma-separated lane counts")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--jobs", default="b1,cornell,glass,kd", help="comma-separated jobs")
     args = ap.parse_args(argv)
 
     import torch
@@ -108,7 +116,7 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     variants = dict(v.split("=", 1) for v in args.variant)
     libs = build_all(variants)
-    fns = {n: bk.render_fn_of(lib) for n, (lib, _) in libs.items()}
+    fns = {n: (bk.render_fn_of(lib), bk.render_kd_fn_of(lib)) for n, (lib, _) in libs.items()}
     for n, (_, ptxas) in libs.items():
         print(f"[build] {n}: {' | '.join(ptxas)}", flush=True)
     lanes_list = [int(x) for x in args.lanes.split(",")]
@@ -120,20 +128,33 @@ def main(argv=None) -> int:
     packs = {"cornell": bk.build_fused_pack(
         procedural.cornell_box_scene(include_spheres=True).to(dev)),
              "glass": bk.build_fused_pack(procedural.glass_scene().to(dev))}
+    names = args.jobs.split(",")
+    if "kd" in names:
+        from benchmark import program, scenes
+
+        with open(os.path.join(REPO, "benchmark", "configs", "refscene_blob82k.json")) as f:
+            config = json.load(f)
+        packs["kd"] = bk.build_fused_pack(
+            program.port_scene(scenes.scene_arrays(config), kd_max_tris=1024).to(dev))
+        kd_view = (program.port_camera(config, 256, 256), program.port_config(config))
 
     def use(fn):
-        """Launch the variant `fn` where the package launches its own."""
-        bk._render_fn = lambda: fn
+        """Launch the variant's launchers `fn` where the package launches
+        its own."""
+        bk._render_fn = lambda: fn[0]
+        bk._render_kd_fn = lambda: fn[1]
 
-    def b1(fn, lanes):
-        use(fn)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        out = bk.fused_chunk(packs["cornell"], cam, 32, 0, key, cfg, lanes)
-        ev[1].record()
-        torch.cuda.synchronize()
-        return out, ev[0].elapsed_time(ev[1])
+    def one_launch(pack, camera, config):
+        def run(fn, lanes):
+            use(fn)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = bk.fused_chunk(pack, camera, 32, 0, key, config, lanes)
+            ev[1].record()
+            torch.cuda.synchronize()
+            return out, ev[0].elapsed_time(ev[1])
+        return run
 
     def path(scene):
         def run(fn, lanes):
@@ -147,7 +168,11 @@ def main(argv=None) -> int:
             return out, (time.perf_counter() - t0) * 1e3
         return run
 
-    jobs = {"b1": b1, "cornell": path("cornell"), "glass": path("glass")}
+    runs = {"b1": one_launch(packs["cornell"], cam, cfg), "cornell": path("cornell"),
+            "glass": path("glass")}
+    if "kd" in packs:
+        runs["kd"] = one_launch(packs["kd"], *kd_view)
+    jobs = {job: runs[job] for job in names}
     report = {"card": bench.nvidia_smi_line(), "runs": args.runs,
               "builds": {n: p for n, (_, p) in libs.items()}, "jobs": {}}
     for job, run in jobs.items():
@@ -168,7 +193,7 @@ def main(argv=None) -> int:
                 if not (torch.equal(img, ref[0]) and rays == ref[1]):
                     raise RuntimeError(f"{job}: {n} at lanes {lanes} is not bit-equal to "
                                        f"{configs[0][0]}")
-        paths = 256 * 256 * (32 if job == "b1" else 1024)
+        paths = 256 * 256 * (32 if job in ("b1", "kd") else 1024)
         report["jobs"][job] = {}
         for c in configs:
             t = times[c]
